@@ -1,0 +1,7 @@
+"""Leaf layers (counterpart of convnet_tpu/nn)."""
+
+from convnet_tpu_torch.nn.layers import (BatchNorm2d, Conv2d, GlobalAvgPool,
+                                         Linear, MaxPool2d, ReLU)
+
+__all__ = ["BatchNorm2d", "Conv2d", "GlobalAvgPool", "Linear", "MaxPool2d",
+           "ReLU"]

@@ -1,0 +1,121 @@
+"""Leaf layer modules on NHWC activations (counterpart of
+convnet_tpu/nn/layers.py).
+
+Parameters are float32 and are cast to the activations' dtype at use;
+BatchNorm running statistics stay float32. Weights are in PyTorch's layout:
+conv OIHW, linear (out, in). ``reset_parameters(generator)`` draws a layer's
+parameters from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from convnet_tpu_torch import ops
+from convnet_tpu_torch.core import initializers as init
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+class Conv2d(nn.Module):
+    """Bias-free NHWC conv; weight OIHW."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, groups=1):
+        super().__init__()
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = _pair(kernel_size)
+        self.stride = stride
+        self.padding = padding
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(
+            out_channels, in_channels // groups, *self.kernel_size))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        self.weight.copy_(init.kaiming_normal(self.weight.shape, generator))
+
+    def forward(self, x):
+        return ops.conv2d(x, self.weight, stride=self.stride,
+                          padding=self.padding, groups=self.groups)
+
+
+class BatchNorm2d(nn.Module):
+    """Eval-mode BN over NHWC channels: ``weight``/``bias`` (γ/β) and the
+    ``running_mean``/``running_var`` buffers."""
+
+    def __init__(self, num_features, eps=1e-5):
+        super().__init__()
+        self.num_features = num_features
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(num_features))
+        self.bias = nn.Parameter(torch.empty(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def folded(self):
+        """(scale, shift), float32, with ``bn(x) == x * scale + shift``."""
+        inv = torch.rsqrt(self.running_var + self.eps)
+        scale = self.weight.float() * inv
+        shift = self.bias.float() - self.running_mean * scale
+        return scale, shift
+
+    def forward(self, x):
+        if self.training:
+            raise NotImplementedError(
+                "training-mode BatchNorm is not ported yet; call .eval()")
+        return ops.batch_norm_inference(x, self.weight, self.bias,
+                                        self.running_mean, self.running_var,
+                                        eps=self.eps)
+
+
+class Linear(nn.Module):
+    def __init__(self, in_features, out_features):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        self.weight.copy_(init.torch_linear_default(self.weight.shape,
+                                                    generator))
+        bound = 1.0 / max(self.in_features, 1) ** 0.5
+        self.bias.copy_(init.uniform((self.out_features,), bound, generator))
+
+    def forward(self, x):
+        return ops.linear(x, self.weight, self.bias)
+
+
+class ReLU(nn.Module):
+    def forward(self, x):
+        return ops.relu(x)
+
+
+class MaxPool2d(nn.Module):
+    def __init__(self, kernel_size, stride=None, padding=0):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+
+    def forward(self, x):
+        return ops.max_pool2d(x, self.kernel_size, self.stride, self.padding)
+
+
+class GlobalAvgPool(nn.Module):
+    """AdaptiveAvgPool2d(1) + flatten equivalent."""
+
+    def forward(self, x):
+        return ops.global_avg_pool(x)

@@ -1,0 +1,115 @@
+"""Fused matmul + per-column scale/shift + activation: the 1x1 conv kernel.
+
+Counterpart of ``convnet_tpu/ops/pallas/matmul_fused.py``. A 1x1 conv (or a
+Linear) followed by a folded BatchNorm and an activation is exactly
+``act((X @ W) * scale + shift)`` with X = (N*H*W, Cin); the CUDA kernel in
+``csrc/matmul_fused.cu`` computes it in one pass with float32 accumulation
+and the epilogue in float32, writing the output once in X's type.
+
+On a CUDA tensor the wrappers launch that kernel or raise; on a CPU tensor
+they run :func:`matmul_scale_act_plain`, the same function in plain PyTorch,
+which is also the kernel's oracle in the on-card checks. ``launches`` counts
+kernel launches only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from convnet_tpu_torch.ops.kernels import _build
+
+ACTS = {"none": 0, "relu": 1, "relu6": 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0  # kernel launches since the last reset (set it to 0 to reset)
+
+
+def _act(y, act):
+    if act == "relu":
+        return torch.clamp_min(y, 0.0)
+    if act == "relu6":
+        return torch.clamp(y, 0.0, 6.0)
+    return y
+
+
+def _check_args(x, w, scale, shift, act):
+    if act not in ACTS:
+        raise ValueError(f"act={act!r}: choose from {sorted(ACTS)}")
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"shapes x {tuple(x.shape)} and w {tuple(w.shape)} "
+                         f"do not form (M, K) @ (K, N)")
+    n = w.shape[1]
+    for name, v in (("scale", scale), ("shift", shift)):
+        if v.shape != (n,) or v.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 of shape ({n},), got "
+                             f"{v.dtype} {tuple(v.shape)}")
+
+
+def matmul_scale_act_plain(x, w, scale, shift, act="relu"):
+    """The kernel's function in plain PyTorch (float32 math, cast back)."""
+    y = (x.float() @ w.to(x.dtype).float()) * scale + shift
+    return _act(y, act).to(x.dtype)
+
+
+@functools.cache
+def _kernel():
+    lib = _build.library("matmul_fused")
+    fn = lib.ctt_matmul_scale_act
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(x, w, scale, shift, act):
+    global launches
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"no kernel for {x.dtype}: float32 or bfloat16 only")
+    for name, v in (("w", w), ("scale", scale), ("shift", shift)):
+        if v.device != x.device:
+            raise ValueError(f"{name} is on {v.device}, x on {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous (M, K) row-major")
+    m, k = x.shape
+    n = w.shape[1]
+    # the kernel reads W as (N, K) row-major, i.e. the OIHW weight as stored;
+    # cast to the compute type first, as the TPU kernel's caller does
+    wt = w.t().to(x.dtype).contiguous()
+    scale = scale.contiguous()
+    shift = shift.contiguous()
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    fn = _kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), wt.data_ptr(), scale.data_ptr(),
+                 shift.data_ptr(), out.data_ptr(), m, k, n, ACTS[act],
+                 _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"matmul_scale_act kernel launch failed: CUDA error "
+                           f"{err} (M={m}, K={k}, N={n}, {x.dtype})")
+    launches += 1
+    return out
+
+
+def matmul_scale_act(x, w, scale, shift, act="relu"):
+    """``act((x @ w) * scale + shift)``: x (M, K), w (K, N), scale/shift (N,)
+    float32. Output in x's type."""
+    _check_args(x, w, scale, shift, act)
+    if x.is_cuda:
+        return _launch(x, w, scale, shift, act)
+    if x.device.type == "cpu":
+        return matmul_scale_act_plain(x, w, scale, shift, act)
+    raise ValueError(f"no kernel for device {x.device}")
+
+
+def conv1x1_bn_act(x, w, scale, shift, act="relu"):
+    """Fused 1x1 conv + folded BN + activation on an NHWC input. ``w`` is
+    the conv's OIHW weight, (Cout, Cin, 1, 1)."""
+    b, h, wd, cin = x.shape
+    w2 = w.reshape(w.shape[0], cin).t()  # (K, N) view of the (N, K) weight
+    out = matmul_scale_act(x.reshape(-1, cin), w2, scale, shift, act)
+    return out.view(b, h, wd, -1)
