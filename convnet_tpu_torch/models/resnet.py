@@ -7,10 +7,16 @@ parameter tree (``stem.conv1.conv.weight``,
 In eval, every 1x1 stride-1 ungrouped ``ConvBN`` runs as one fused kernel
 (conv + folded BN + activation, ``ops/kernels/matmul_fused.py``), the route
 the JAX package takes with ``impl="pallas"``; on a CUDA tensor that is the
-hand-written kernel. At depth 50 that is 33 launches per forward.
+hand-written kernel. At depth 50 that is 33 launches per forward. In
+training a ``ConvBN`` is conv → batch-statistics BN → ReLU. The stem's max
+pool runs the pool kernels (``ops/kernels/max_pool.py``) in both modes.
+
+The model carries its own optimizer schedule, ``model.regime``, built by
+``_make_regime`` (a copy of the JAX package's regimes).
 
 Not ported yet: the CIFAR ResNets, SE blocks, remat, ``zero_init_residual``,
-the ``s2d`` stem and the embedded training regimes.
+the ``s2d`` stem and the ``data_regime`` of ``regime="mixmatch"`` (it waits
+for the data pipeline).
 """
 
 from __future__ import annotations
@@ -22,6 +28,13 @@ from convnet_tpu_torch.core.module import Sequential
 from convnet_tpu_torch.nn import (BatchNorm2d, Conv2d, GlobalAvgPool, Linear,
                                   MaxPool2d)
 from convnet_tpu_torch.ops.kernels.matmul_fused import conv1x1_bn_act
+from convnet_tpu_torch.regimes import schedules
+
+
+def weight_decay_config(value=1e-4):
+    """Decoupled weight decay, applied to the weights that
+    ``utils.param_filter.wd_mask`` selects (no biases, no BN parameters)."""
+    return {"name": "WeightDecay", "value": value}
 
 
 class ConvBN(nn.Module):
@@ -104,7 +117,7 @@ class ResNet_imagenet(nn.Module):
     }
 
     def __init__(self, depth=50, num_classes=1000, width=None, block=None,
-                 layers=None):
+                 layers=None, regime="normal", batch_size=256, epochs=90):
         super().__init__()
         if block is None or layers is None:
             if depth not in self.DEPTHS:
@@ -125,9 +138,75 @@ class ResNet_imagenet(nn.Module):
         self.pool = GlobalAvgPool()
         self.fc = Linear(inplanes, num_classes)
         self.input_size = 224
+        self.regime = self._make_regime(regime, batch_size, epochs)
 
     def forward(self, x):
         return self.fc(self.pool(self.layers(self.stem(x))))
+
+    def _make_regime(self, name, batch_size, epochs):
+        wd = weight_decay_config(1e-4)
+        if name in ("large", "large_batch"):
+            # Goyal-style linear scaling + 5-epoch warmup ramp
+            steps_per_epoch = max(1281167 // batch_size, 1)
+            lr = schedules.scaled_lr(0.1, batch_size)
+            return [
+                {"epoch": 0, "optimizer": "SGD", "momentum": 0.9,
+                 "regularizer": wd,
+                 "lr": schedules.linear_warmup_lr(0.1, lr, 5 * steps_per_epoch)},
+                {"epoch": 30, "lr": lr * 1e-1},
+                {"epoch": 60, "lr": lr * 1e-2},
+                {"epoch": 80, "lr": lr * 1e-3},
+            ]
+        if name in ("large_lars", "lars"):
+            # LARS past the linear-scaling regime's ~8k-batch ceiling
+            # (You et al. 2017; the MLPerf RN50 convention: polynomial
+            # decay power 2, 5-epoch warmup, wd inside the trust ratio,
+            # bias/BN excluded). lr anchored at the published 4k-batch
+            # operating point and scaled linearly.
+            steps_per_epoch = max(1281167 // batch_size, 1)
+            return [
+                {"epoch": 0, "optimizer": "LARS", "momentum": 0.9,
+                 "weight_decay": 1e-4, "trust_coef": 0.001,
+                 "lr": schedules.polynomial_lr(
+                     7.4 * batch_size / 4096,
+                     epochs * steps_per_epoch, power=2.0,
+                     warmup_steps=5 * steps_per_epoch)},
+            ]
+        if name == "small":
+            # small-batch regime ("Train longer, generalize better" lineage)
+            return [
+                {"epoch": 0, "optimizer": "SGD", "momentum": 0.9,
+                 "regularizer": wd, "lr": 0.1 * batch_size / 256},
+                {"epoch": 30, "lr": 0.01 * batch_size / 256},
+                {"epoch": 60, "lr": 0.001 * batch_size / 256},
+                {"epoch": 80, "lr": 0.0001 * batch_size / 256},
+            ]
+        if name == "mixmatch":
+            # optimizer schedule identical to 'normal'; the JAX package
+            # adds a progressive-resizing data_regime, not ported yet
+            return [
+                {"epoch": 0, "optimizer": "SGD", "lr": 0.1, "momentum": 0.9,
+                 "regularizer": wd},
+                {"epoch": 30, "lr": 1e-2},
+                {"epoch": 60, "lr": 1e-3},
+                {"epoch": 80, "lr": 1e-4},
+            ]
+        if name == "cosine":
+            steps_per_epoch = max(1281167 // batch_size, 1)
+            return [{"epoch": 0, "optimizer": "SGD", "momentum": 0.9,
+                     "regularizer": wd,
+                     "lr": schedules.cosine_lr(
+                         schedules.scaled_lr(0.1, batch_size),
+                         epochs * steps_per_epoch,
+                         warmup_steps=5 * steps_per_epoch)}]
+        # 'normal': the classic 90-epoch stepped schedule
+        return [
+            {"epoch": 0, "optimizer": "SGD", "lr": 0.1, "momentum": 0.9,
+             "regularizer": wd},
+            {"epoch": 30, "lr": 1e-2},
+            {"epoch": 60, "lr": 1e-3},
+            {"epoch": 80, "lr": 1e-4},
+        ]
 
 
 def resnet(**config):

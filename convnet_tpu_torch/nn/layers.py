@@ -46,13 +46,15 @@ class Conv2d(nn.Module):
 
 
 class BatchNorm2d(nn.Module):
-    """Eval-mode BN over NHWC channels: ``weight``/``bias`` (γ/β) and the
-    ``running_mean``/``running_var`` buffers."""
+    """BN over NHWC channels: ``weight``/``bias`` (γ/β) and the float32
+    ``running_mean``/``running_var`` buffers. In training it normalises with
+    the batch statistics and updates the buffers in place (torch momentum)."""
 
-    def __init__(self, num_features, eps=1e-5):
+    def __init__(self, num_features, eps=1e-5, momentum=0.1):
         super().__init__()
         self.num_features = num_features
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.empty(num_features))
         self.bias = nn.Parameter(torch.empty(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -73,8 +75,13 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x):
         if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm is not ported yet; call .eval()")
+            y, mean, var = ops.batch_norm_train(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, momentum=self.momentum, eps=self.eps)
+            with torch.no_grad():
+                self.running_mean.copy_(mean)
+                self.running_var.copy_(var)
+            return y
         return ops.batch_norm_inference(x, self.weight, self.bias,
                                         self.running_mean, self.running_var,
                                         eps=self.eps)

@@ -10,6 +10,10 @@ On a CUDA tensor the wrappers launch that kernel or raise; on a CPU tensor
 they run :func:`matmul_scale_act_plain`, the same function in plain PyTorch,
 which is also the kernel's oracle in the on-card checks. ``launches`` counts
 kernel launches only.
+
+The op is differentiable, with the JAX package's custom VJP
+(``matmul_fused.py:92-110``): dx, dw, dscale and dshift are plain matmuls
+and sums, as they are there outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -95,15 +99,43 @@ def _launch(x, w, scale, shift, act):
     return out
 
 
+class _MatmulScaleAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, scale, shift, act):
+        if x.is_cuda:
+            y = _launch(x, w, scale, shift, act)
+        elif x.device.type == "cpu":
+            y = matmul_scale_act_plain(x, w, scale, shift, act)
+        else:
+            raise ValueError(f"no kernel for device {x.device}")
+        ctx.save_for_backward(x, w, scale, y)
+        ctx.act = act
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, scale, y = ctx.saved_tensors
+        dy = dy.float()
+        if ctx.act == "relu":
+            dy = dy * (y > 0)
+        elif ctx.act == "relu6":
+            dy = dy * ((y > 0) & (y < 6))
+        r = (dy * scale).to(x.dtype)                # d(acc)
+        wc = w.to(x.dtype)
+        dx = r @ wc.t()
+        dw = (x.t() @ r).to(w.dtype)
+        # dscale needs the pre-scale accumulator: recompute one matmul
+        acc = (x @ wc).float()
+        dscale = torch.sum(dy * acc, dim=0)
+        dshift = torch.sum(dy, dim=0)
+        return dx.to(x.dtype), dw, dscale, dshift, None
+
+
 def matmul_scale_act(x, w, scale, shift, act="relu"):
     """``act((x @ w) * scale + shift)``: x (M, K), w (K, N), scale/shift (N,)
-    float32. Output in x's type."""
+    float32. Output in x's type. Differentiable."""
     _check_args(x, w, scale, shift, act)
-    if x.is_cuda:
-        return _launch(x, w, scale, shift, act)
-    if x.device.type == "cpu":
-        return matmul_scale_act_plain(x, w, scale, shift, act)
-    raise ValueError(f"no kernel for device {x.device}")
+    return _MatmulScaleAct.apply(x, w, scale, shift, act)
 
 
 def conv1x1_bn_act(x, w, scale, shift, act="relu"):

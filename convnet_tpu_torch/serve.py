@@ -17,21 +17,12 @@ import numpy as np
 import torch
 
 from convnet_tpu_torch import models
+from convnet_tpu_torch.core.device import resolve_device
 from convnet_tpu_torch.core.dtypes import get_policy
 from convnet_tpu_torch.core.module import init_parameters
 from convnet_tpu_torch.data.preprocess import DATASET_STATS, default_image_size
 from convnet_tpu_torch.utils.absorb_bn import search_absorb_bn
 from convnet_tpu_torch.utils.from_jax import from_jax_params
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card: raise rather than fall back to the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run on "
-                               "the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 class Predictor:

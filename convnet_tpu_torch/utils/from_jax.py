@@ -1,9 +1,10 @@
-"""Carry the JAX package's weights into the port.
+"""Carry weights between the JAX package and the port.
 
 The JAX package keeps parameters and BatchNorm statistics as two nested
-dicts (``params``, ``state``) keyed like the port's module tree. This turns
-them, as numpy arrays, into the port's ``state_dict``: a mechanical rename
-plus a transpose of each weight.
+dicts (``params``, ``state``) keyed like the port's module tree.
+``from_jax_params`` turns them, as numpy arrays, into the port's
+``state_dict``: a mechanical rename plus a transpose of each weight;
+``to_jax_params`` is its inverse.
 """
 
 from __future__ import annotations
@@ -48,3 +49,37 @@ def from_jax_params(params, state=None) -> dict:
         out[".".join(path[:-1] + (name,))] = torch.tensor(arr,
                                                          dtype=torch.float32)
     return out
+
+
+def to_jax_params(state_dict) -> tuple[dict, dict]:
+    """The inverse of :func:`from_jax_params`: a port ``state_dict`` →
+    (``params``, ``state``), nested dicts of float32 numpy arrays in the JAX
+    package's names and layouts. A ``bias`` beside a ``running_mean`` is a
+    BatchNorm β (``bias``); any other is a layer's bias (``b``)."""
+    params, state = {}, {}
+    bn_modules = {k.rsplit(".", 1)[0] for k in state_dict
+                  if k.endswith("running_mean")}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        arr = np.array(value.detach().cpu().float().numpy())  # a copy
+        module = ".".join(path)
+        tree = params
+        if leaf == "running_mean":
+            tree, leaf = state, "mean"
+        elif leaf == "running_var":
+            tree, leaf = state, "var"
+        elif leaf == "weight" and arr.ndim == 4:
+            leaf, arr = "w", arr.transpose(2, 3, 1, 0)   # OIHW → HWIO
+        elif leaf == "weight" and arr.ndim == 2:
+            leaf, arr = "w", arr.T                      # (out, in) → (in, out)
+        elif leaf == "weight":
+            leaf = "scale"                              # BN γ
+        elif leaf == "bias" and module not in bn_modules:
+            leaf = "b"
+        elif leaf != "bias":
+            raise KeyError(f"no JAX name for port entry {key} of shape "
+                           f"{tuple(arr.shape)}")
+        for part in path:
+            tree = tree.setdefault(part, {})
+        tree[leaf] = np.ascontiguousarray(arr)
+    return params, state

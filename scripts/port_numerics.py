@@ -1,0 +1,255 @@
+"""How closely float32 (and bf16) can hold the port's ResNet-50 training step
+to the JAX package's, on the CPU.
+
+Prints the figures that set the tolerances of tests/test_torch_port_train.py
+and of the float32 card-against-CPU check in chip_smoke.py:
+
+  sensitivity   narrow ResNet-50 (width 8..64, batch 4, 32x32, train mode):
+                how far a 1e-7 relative change of the input moves the logits,
+                and the third free-running step's loss (the port alone)
+  jax           the same net under the JAX Trainer (Pallas pool, interpret
+                mode) and the port's Trainer, each port step started from the
+                JAX state: loss, update and BN-statistics differences
+  bf16_step     one bf16 step of both trainers from the same weights
+  bf16          the bf16 forward and backward of three blocks, port against
+                JAX (op by op), and each against the port's float32 block
+  float64       full-width ResNet-50, batch 4, 224x224: the port's float32
+                step against the same step in float64 (with the JAX
+                package's variance formula and with a two-pass one)
+  oscillation   full-width ResNet-50, batch 32, 96x96, bf16, "normal" regime:
+                20 steps on one batch under both trainers
+
+Run from the repository root (minutes; the float64 and oscillation parts
+take the most):
+
+    JAX_PLATFORMS=cpu PYTHONPATH=.:tests python scripts/port_numerics.py \
+        [sensitivity jax bf16_step bf16 float64 oscillation]
+"""
+
+import os
+import sys
+
+import conftest  # noqa: F401  (pins JAX to the CPU before it starts)
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import test_torch_port_train as T
+from convnet_tpu import models as jax_models
+from convnet_tpu.regimes import optim as jax_optim
+from convnet_tpu.train.trainer import Trainer as JaxTrainer
+from convnet_tpu.train.trainer import TrainerConfig as JaxTrainerConfig
+from convnet_tpu_torch import models, ops
+from convnet_tpu_torch.regimes.optim import OptimRegime
+from convnet_tpu_torch.train.trainer import Trainer, TrainerConfig
+from convnet_tpu_torch.utils.from_jax import to_jax_params
+
+
+def norm_err(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def sensitivity():
+    tr = T._port_trainer("float32")
+    tr.model.train()
+    x = torch.from_numpy(T._batches(1)[0][0])
+    noise = 1 + 1e-7 * torch.from_numpy(
+        np.random.default_rng(0).standard_normal(x.shape).astype(np.float32))
+    with torch.no_grad():
+        a, b = tr.model(x), tr.model(x * noise)
+    print("narrow net, logits moved by a 1e-7 input change (max / max|logit|)"
+          f": {float((a - b).abs().max() / a.abs().max()):.3g}")
+    losses = []
+    for scale in (None, noise):
+        tr = T._port_trainer("float32")
+        run = []
+        for x, y in T._batches(T.STEPS):
+            x = torch.from_numpy(x)
+            run.append(float(tr.train_step(x if scale is None
+                                           else x * scale, y)["loss"]))
+        losses.append(run)
+    print("narrow net, free-running step losses "
+          f"{losses[0]} and with the input change {losses[1]}: relative "
+          f"moves {[abs(a - b) / a for a, b in zip(*losses)]}")
+
+
+def jax_steps():
+    params, state = to_jax_params(T._port_trainer("float32")
+                                  .model.state_dict())
+    os.environ["CONVNET_TPU_PALLAS_POOL"] = "1"
+    os.environ["CONVNET_TPU_PALLAS_FUSED"] = "1"
+    steps, ours, j_val, val = T.trajectory.__wrapped__((params, state))
+    for i, ((before, j_loss, (j_p, j_s)), (loss, (p, s))) in enumerate(
+            zip(steps, ours)):
+        p0 = dict(T._leaves(before[0]))
+        ref = T._updates(p0, dict(T._leaves(j_p)))
+        got = T._updates(p0, dict(T._leaves(p)))
+        worst = max(ref, key=lambda k: np.abs(got[k] - ref[k]).max()
+                    / np.abs(ref[k]).max())
+        rs, gs = dict(T._leaves(j_s)), dict(T._leaves(s))
+        total = norm_err(np.concatenate([got[k].ravel() for k in ref]),
+                         np.concatenate([ref[k].ravel() for k in ref]))
+        tensor = (np.abs(got[worst] - ref[worst]).max()
+                  / np.abs(ref[worst]).max())
+        stats = max(float((np.abs(gs[k] - rs[k]) / (1 + np.abs(rs[k]))).max())
+                    for k in rs)
+        print(f"step {i + 1}: loss {abs(loss - j_loss) / j_loss:.3g} apart; "
+              f"updates in norm {total:.3g}, worst tensor {worst} "
+              f"{tensor:.3g} of its largest update; BN statistics "
+              f"{stats:.3g}")
+    print(f"validate: JAX {j_val}, port {val}")
+
+
+def bf16_step():
+    params, state = to_jax_params(T._port_trainer("float32")
+                                  .model.state_dict())
+    os.environ["CONVNET_TPU_PALLAS_POOL"] = "1"
+    batches = T._batches(1)
+    steps, _, _ = T._jax_trajectory("bf16", batches, params, state)
+    tr = T._port_trainer("bf16")
+    loss = float(tr.train_step(*batches[0])["loss"])
+    print(f"one bf16 step from the same weights: JAX loss {steps[0][1]:.4f},"
+          f" port {loss:.4f}, {abs(loss - steps[0][1]) / steps[0][1]:.3g} "
+          "apart")
+
+
+def bf16_blocks():
+    params, state = to_jax_params(T._port_trainer("float32")
+                                  .model.state_dict())
+    j_model = jax_models.build("resnet", **T.NARROW)
+    port = models.build("resnet", **T.NARROW)
+    port.load_state_dict(T.from_jax_params(params, state))
+    port.train()
+    ctx = T.Context(train=True)
+    h = torch.from_numpy(T._batches(1)[0][0]).to(torch.bfloat16)
+    worst = {"port vs JAX": 0.0, "port vs float32": 0.0,
+             "JAX vs float32": 0.0}
+    for name, j_block, p_block, p, s in T._blocks(j_model, port, params,
+                                                   state):
+        if name in ("stem", "layer1.0", "layer4.0"):
+            hj = jnp.asarray(h.float().numpy(), jnp.bfloat16)
+            out, vjp = jax.vjp(lambda a, b: j_block(a, s, b, ctx)[0], p, hj)
+            dy = T._rng(len(name)).standard_normal(out.shape).astype(
+                np.float32)
+            j_gp, j_gh = vjp(jnp.asarray(dy, jnp.bfloat16))
+            theirs = {"out": out, "dx": j_gh, **dict(T._leaves(j_gp))}
+            ours = {}
+            for dtype in (torch.bfloat16, torch.float32):
+                saved = {k: v.clone() for k, v in p_block.state_dict().items()}
+                ht = h.detach().to(dtype).clone().requires_grad_()
+                o = p_block(ht)
+                o.backward(torch.from_numpy(dy).to(dtype))
+                p_block.load_state_dict(saved)
+                grads = {n: q.grad for n, q in p_block.named_parameters()}
+                for q in p_block.parameters():
+                    q.grad = None
+                g, _ = to_jax_params({**grads,
+                                      **dict(p_block.named_buffers())})
+                ours[dtype] = {"out": o.detach().float().numpy(),
+                               "dx": ht.grad.float().numpy(),
+                               **dict(T._leaves(g))}
+            for k, ref in ours[torch.float32].items():
+                j = np.asarray(theirs[k], np.float32)
+                b = ours[torch.bfloat16][k]
+                for what, e in (("port vs JAX", norm_err(b, j)),
+                                ("port vs float32", norm_err(b, ref)),
+                                ("JAX vs float32", norm_err(j, ref))):
+                    worst[what] = max(worst[what], e)
+        with torch.no_grad():
+            h = p_block(h)
+    print(f"bf16 blocks, largest norm error of any output or gradient: "
+          f"{worst}")
+
+
+def _float64_step(double, two_pass):
+    """The update (p1 - p0) of one float32 or float64 step, full width."""
+    bn = ops.batch_norm_train
+    if two_pass:
+        def bn(x, scale, bias, rm, rv, *, momentum=0.1, eps=1e-5):
+            x32 = x.float()
+            dims = tuple(range(x.dim() - 1))
+            mean = x32.mean(dims)
+            var = (x32 - mean).square().mean(dims)
+            y = ((x32 - mean) * torch.rsqrt(var + eps) * scale.float()
+                 + bias.float()).to(x.dtype)
+            n = x.numel() // x.shape[-1]
+            return (y, (1 - momentum) * rm + momentum * mean.detach(),
+                    (1 - momentum) * rv
+                    + momentum * var.detach() * n / (n - 1))
+    layers = sys.modules["convnet_tpu_torch.nn.layers"]
+    saved_bn, saved_float = layers.ops.batch_norm_train, torch.Tensor.float
+    layers.ops.batch_norm_train = bn
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((4, 224, 224, 3)).astype(np.float32)
+    y = rng.integers(0, 1000, 4)
+    model = models.build("resnet", depth=50)
+    tr = Trainer(model, OptimRegime(model.regime), 1000, TrainerConfig(),
+                 device="cpu", seed=0)
+    tr.initialize()
+    p0 = {k: v.detach().double().clone()
+          for k, v in model.named_parameters()}
+    try:
+        if double:   # every float32 cast of the port becomes a no-op
+            torch.Tensor.float = (lambda t: t if t.dtype == torch.float64
+                                  else saved_float(t))
+            model.double()
+            tr._params = list(model.parameters())
+            tr.opt_state = tr.optim.init_state(tr._params)
+            tr.policy = type(tr.policy)(compute_dtype=torch.float64)
+        tr.train_step(x, y)
+    finally:
+        torch.Tensor.float = saved_float
+        layers.ops.batch_norm_train = saved_bn
+    return {k: v.detach().double() - p0[k]
+            for k, v in model.named_parameters()}
+
+
+def float64():
+    for two_pass in (False, True):
+        u32 = _float64_step(False, two_pass)
+        u64 = _float64_step(True, two_pass)
+        total = float((sum(((u32[k] - u64[k]) ** 2).sum() for k in u64)
+                       / sum((u64[k] ** 2).sum() for k in u64)).sqrt())
+        worst = max(float((u32[k] - u64[k]).norm() / u64[k].norm())
+                    for k in u64)
+        print(f"full width, batch 4, 224x224, "
+              f"{'two-pass' if two_pass else 'E[x^2]-E[x]^2'} variance: "
+              f"float32 updates {total:.3g} from float64 in norm, worst "
+              f"tensor {worst:.3g}")
+
+
+def oscillation():
+    cfg = {"depth": 50, "num_classes": 1000}
+    model = models.build("resnet", **cfg)
+    tr = Trainer(model, OptimRegime(model.regime), 1000,
+                 TrainerConfig(dtype="bf16"), device="cpu", seed=0)
+    tr.initialize()
+    params, state = to_jax_params(model.state_dict())
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((32, 96, 96, 3)).astype(np.float32)
+    y = rng.integers(0, 1000, 32).astype(np.int32)
+    j_model = jax_models.build("resnet", **cfg)
+    jt = JaxTrainer(j_model, jax_optim.OptimRegime(j_model.regime), 1000,
+                    JaxTrainerConfig(dtype="bf16", print_freq=0))
+    p, s, o = jt.initialize(params, state)
+    hp = jt._hp_device(jt.optim.hyperparams())
+    step = jt._get_train_step()
+    j_losses = []
+    for _ in range(20):
+        p, s, o, m = step(p, s, o, jnp.asarray(x), jnp.asarray(y), hp,
+                          jax.random.PRNGKey(0))
+        j_losses.append(round(float(m["loss"]), 3))
+    losses = [round(float(tr.train_step(x, y)["loss"]), 3)
+              for _ in range(20)]
+    print(f"20 bf16 steps on one batch: JAX {j_losses}\n"
+          f"                            port {losses}")
+
+
+PARTS = {"sensitivity": sensitivity, "jax": jax_steps, "bf16_step": bf16_step,
+         "bf16": bf16_blocks, "float64": float64, "oscillation": oscillation}
+
+if __name__ == "__main__":
+    torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+    for part in sys.argv[1:] or PARTS:
+        PARTS[part]()

@@ -88,3 +88,33 @@ def test_wrapper_rejects_what_it_cannot_run():
         mf.matmul_scale_act(x, w.t(), scale, shift)
     with pytest.raises(ValueError, match="scale"):
         mf.matmul_scale_act(x, w, scale.double(), shift)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["none", "relu", "relu6"])
+def test_matmul_scale_act_gradients_match_jax_vjp(act, dtype):
+    """dx, dw, dscale and dshift against the JAX custom VJP (Pallas forward
+    in interpret mode): 1e-4 in float32; 1e-2 relative to the largest
+    entry in bf16, where both round r = dy * scale to bf16 before the
+    matmuls."""
+    import jax
+
+    x, w, scale, shift = _inputs(49, 64, 32, seed=7)
+    dy = np.random.default_rng(8).standard_normal((49, 32)).astype(
+        np.float32)
+    jd = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    _, vjp = jax.vjp(lambda a, b, c, d: jax_mf.matmul_scale_act(
+        a, b, c, d, act=act, interpret=True), jnp.asarray(x, jd),
+        jnp.asarray(w), jnp.asarray(scale), jnp.asarray(shift))
+    refs = vjp(jnp.asarray(dy, jd))
+    ins = [torch.from_numpy(x).to(TORCH_DTYPE[dtype]).requires_grad_(),
+           *(torch.from_numpy(a).requires_grad_() for a in (w, scale, shift))]
+    out = mf.matmul_scale_act(*ins, act=act)
+    out.backward(torch.from_numpy(dy).to(TORCH_DTYPE[dtype]))
+    for t, ref in zip(ins, refs):
+        ref = np.asarray(ref, np.float32)
+        got = t.grad.float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+        else:
+            assert np.abs(got - ref).max() <= 1e-2 * np.abs(ref).max()
