@@ -9,25 +9,32 @@ Run from the repository root with one CUDA card, nvcc and nvidia-smi:
 Without a card, or without the ``convnet_tpu_torch`` package beside it, it
 exits non-zero before printing any result. It imports nothing of JAX.
 
+Three models, each at full width, 224x224, weights drawn from a seed:
+ResNet-50, ResNeXt-50 32x4d and MobileNet v1.
+
 1. card: name and power limit; the CUDA kernels are built with nvcc, one
    process per source, all started together.
 2. kernels: every kernel is held against its plain PyTorch version on the
-   card at each shape the ResNet-50 paths give it (serving: batch 64 and 1;
-   the stem pool: batch 128 and 1; bf16 and float32) and at ragged shapes,
-   with inputs drawn from a handful of values so that the pool's ties are
-   common; kernel, plain version and the nearest library call are timed
-   with CUDA events.
-3. serve: ResNet-50 (full width, 224x224, bf16, weights drawn from a seed)
-   answers requests of 64, 17 and 1 uint8 images. The launch counts are set
-   to 0 just before and read just after; each kernel must have launched its
-   share. The logits must be finite, unchanged by the padding rows, and agree
-   with the port's plain float32 forward on the CPU. Then the card's
-   serving throughput and batch-1 latency are timed.
-4. train: the same ResNet-50 in the port's ``Trainer`` with its "normal"
-   regime. One float32 step on the card (TF32 off) against the same step on
-   the CPU; then 20 bf16 steps at batch 128 on one random batch, counted
-   and timed; two more under torch.profiler, whose device time is broken
-   down by kernel; and one ``validate``, counted.
+   card at each shape the three models' paths give it (serving: batch 64
+   and 1; the stem pools: batch 128 and 1; the grouped conv at ResNeXt-50's
+   stride-1 shapes and the depthwise conv at MobileNet v1's nine shapes,
+   each at batch 64, 128 (training and ``validate``) and 1; bf16 and
+   float32), at ragged shapes, and for the convs' stride-1 input gradients,
+   which run the same kernels; the fused 1x1 kernel also at M above 2^23
+   rows. Kernel, plain version and the nearest library call are timed with
+   CUDA events, and the kernel alone (its launches replayed from a CUDA
+   graph) with CUDA events too.
+3. serve: each model answers requests of 64, 17 and 1 uint8 images. The
+   launch counts are set to 0 just before and read just after; each kernel
+   must have launched its share. The logits must be finite, unchanged by
+   the padding rows, and agree with the port's plain float32 forward on the
+   CPU. Then the card's serving throughput and batch-1 latency are timed.
+4. train: each model in the port's ``Trainer`` with its "normal" regime.
+   ResNet-50 and MobileNet v1: one float32 step on the card (TF32 off)
+   against the same step on the CPU. bf16 steps at batch 128 on one random
+   batch (20 for ResNet-50, 10 for the others), counted and timed; two more
+   under torch.profiler, whose device time is broken down by kernel; and
+   one ``validate``, counted.
 5. summary: one ``{"kernels": [...]}`` line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -39,6 +46,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import faulthandler
+import functools
 import json
 import statistics
 import subprocess
@@ -68,11 +76,58 @@ KERNEL_TOL = {"bf16": 1e-2, "float32": 1e-4}
 # differs from the CPU's only in summation order (TF32 is off).
 SERVE_TOL = {"bf16": 5e-2, "float32": 1e-3}
 PAD_TOL = 1e-3  # the same rows in a batch of 64 padded or full
-KERNELS = ("matmul_fused", "max_pool")   # csrc/<name>.cu
+KERNELS = ("matmul_fused", "max_pool", "grouped_conv",
+           "depthwise_conv")                     # csrc/<name>.cu
 TRAIN_BATCH = 128     # bf16 steps; BN keeps float32 copies for its backward
-TRAIN_STEPS = 20
 CHECK_BATCH = 4       # the float32 step held against the CPU
-STEM_POOL = ((112, 112, 64), 3, 2, 1)    # (H, W, C), kernel, stride, padding
+# the stem pools of ResNet-50 and ResNeXt-50: (H, W, C), kernel, stride, pad
+STEM_POOLS = [((112, 112, 64), 3, 2, 1), ((112, 112, 128), 3, 2, 1)]
+# fault 3.1: the fused 1x1 kernel at M above gridDim.y's 65,535 tiles
+# (M, K, N, act, dtype); x alone is 1.08 GB in either
+LARGE_M = [(8_400_000, 64, 64, "relu", "bf16"),
+           (4_200_000, 64, 64, "relu", "float32")]
+# ResNeXt-50's stride-1 grouped 3x3s: (H, W, C), cg, launches per forward
+GROUPED_PATH = [((56, 56, 128), 4, 3), ((28, 28, 256), 8, 3),
+                ((14, 14, 512), 16, 5), ((7, 7, 1024), 32, 2)]
+# off the path: the stride-2 shape (first block of stage 2) and ragged
+# cases: (B, H, W, C), cg, stride, padding
+GROUPED_MORE = [((64, 56, 56, 256), 8, 2, 1), ((2, 9, 9, 64), 4, 2, 1),
+                ((2, 7, 5, 96), 3, 1, 1), ((2, 8, 8, 64), 4, 1, 2)]
+# MobileNet v1's depthwise 3x3s at batch 64: (H = W, C, stride), launches
+# per forward
+DEPTHWISE_PATH = [((112, 32, 1), 1), ((112, 64, 2), 1), ((56, 128, 1), 1),
+                  ((56, 128, 2), 1), ((28, 256, 1), 1), ((28, 256, 2), 1),
+                  ((14, 512, 1), 5), ((14, 512, 2), 1), ((7, 1024, 1), 1)]
+DEPTHWISE_MORE = [((2, 15, 13, 3), 2, 1), ((2, 9, 9, 17), 1, 1),
+                  ((2, 8, 8, 40), 2, 1)]
+# the convs vs their plain versions, |err| <= tol * (1 + |ref|):
+#   float32: both add float32 products in a stated order (the depthwise
+#            kernel in exactly the plain version's order, the grouped one
+#            tap by tap as the plain version's einsums do, each einsum in
+#            its own order);
+#   bf16: the same float32 sums, rounded to bf16, may land one ulp (2^-8
+#         relative) apart.
+CONV_TOL = {"bf16": 1e-2, "float32": 1e-5}
+KERNEL_NAMES = ("conv1x1_bn_act", "max_pool2d_fwd_idx", "max_pool2d_bwd",
+                "grouped_conv2d", "depthwise_conv2d")
+
+
+def launches(conv1x1=0, pool_fwd=0, pool_bwd=0, grouped=0, depthwise=0):
+    return dict(zip(KERNEL_NAMES, (conv1x1, pool_fwd, pool_bwd, grouped,
+                                   depthwise)))
+
+
+# tag → (models.build name, config, launches per serving or validate
+# forward, launches per training step, bf16 training steps)
+MODELS = {
+    "resnet50": ("resnet", {"depth": 50}, launches(33, 1),
+                 launches(0, 1, 1), 20),
+    "resnext50_32x4d": ("resnext", {}, launches(33, 1, grouped=13),
+                        launches(0, 1, 1), 10),
+    "mobilenet_v1": ("mobilenet", {}, launches(13, depthwise=13),
+                     # 13 forwards and the 9 stride-1 input gradients
+                     launches(depthwise=13 + 9), 10),
+}
 POOL_RAGGED = [((2, 15, 13, 3), 3, 2, 1),   # odd H, W; C = 3: scalar path
                ((2, 8, 8, 5), 2, 2, 0),     # non-overlapping windows
                ((2, 9, 9, 17), 3, 1, 1)]    # stride 1: 9 windows a pixel
@@ -122,6 +177,31 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def kernel_alone_ms(torch, launch, calls=10, replays=5):
+    """Device ms per call of ``launch``, which launches one kernel and
+    nothing else (no weight cast or copy, no count): ``calls`` launches
+    captured in a CUDA graph, the graph replayed ``replays`` times between
+    CUDA events. So neither the wrapper's host work nor its other launches
+    are in the time, as they are in ``cuda_ms`` of back-to-back wrapper
+    calls."""
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            launch()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (calls * replays)
+
+
 def bound(m, k, n, dtype):
     """Least time (ms) for act(x @ w * scale + shift) at this shape: each
     input read once, the output written once, against the HBM rate; 2MKN
@@ -156,24 +236,27 @@ def path_shapes(torch, predictor, images):
     return counts
 
 
-def check_matmul_fused(torch, shapes):
-    """Phase 2 for conv1x1_bn_act: correctness at every path shape (batch
-    64 and 1) and ragged shape, in bf16 and float32; times in bf16, the
-    path's type. Returns per-forward totals at batch 64 for the summary."""
+def check_matmul_fused(torch, path):
+    """Phase 2 for conv1x1_bn_act: correctness at every shape of every
+    model's path (batch 64 and 1) and at the ragged shapes, in bf16 and
+    float32; times in bf16, the path's type. ``path``: model tag → (M, K, N,
+    act) at batch 64 → launches per forward. Returns the per-forward totals
+    at batch 64 of each model, and the largest error."""
     from convnet_tpu_torch.ops.kernels import matmul_fused as mf
     dtypes = {"bf16": torch.bfloat16, "float32": torch.float32}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    distinct = sorted({key for shapes in path.values() for key in shapes})
     cases = []
-    for (m, k, n, act), per_fwd in sorted(shapes.items()):
+    for m, k, n, act in distinct:
         per_image = m // SERVE_BATCH
         for batch in (SERVE_BATCH, 1):
-            cases.append((per_image * batch, k, n, act, per_fwd, batch))
-    cases += [(m, k, n, act, 0, None) for m, k, n, act in RAGGED]
+            cases.append((per_image * batch, k, n, act, batch))
+    cases += [(m, k, n, act, None) for m, k, n, act in RAGGED]
 
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-             "bytes_bound_ms": 0.0, "max_abs_err": 0.0}
+    timed = {}
+    max_err = 0.0
     failures = []
-    for m, k, n, act, per_fwd, batch in cases:
+    for m, k, n, act, batch in cases:
         for dname, dtype in dtypes.items():
             x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
             w = (torch.randn(n, k, generator=gen, device="cuda")
@@ -189,15 +272,21 @@ def check_matmul_fused(torch, shapes):
             ok = bool((diff <= tol * (1 + ref.float().abs())).all())
             rec = {"check": "conv1x1_bn_act", "dtype": dname, "batch": batch,
                    "M": m, "K": k, "N": n, "act": act,
-                   "launches_per_forward": per_fwd, "max_abs_err": err,
-                   "tol": tol, "ok": ok}
+                   "launches_per_forward": {
+                       tag: shapes.get((m * SERVE_BATCH // (batch or 1), k,
+                                        n, act), 0)
+                       for tag, shapes in path.items()} if batch else None,
+                   "max_abs_err": err, "tol": tol, "ok": ok}
             if batch is not None:
-                total["max_abs_err"] = max(total["max_abs_err"], err)
-            if batch is not None and dname == "bf16":
+                max_err = max(max_err, err)
+            if batch == SERVE_BATCH and dname == "bf16":
                 w_lib = (w.t().float() * scale).to(dtype)
                 shift_lib = shift.to(dtype)
                 rec["ms"] = cuda_ms(torch, lambda: mf.matmul_scale_act(
                     x, w.t(), scale, shift, act))
+                y = torch.empty((m, n), dtype=dtype, device="cuda")
+                rec["kernel_ms"] = kernel_alone_ms(
+                    torch, lambda: mf._call(x, w, scale, shift, y, act))
                 rec["plain_ms"] = cuda_ms(
                     torch, lambda: mf.matmul_scale_act_plain(
                         x, w.t(), scale, shift, act))
@@ -205,18 +294,216 @@ def check_matmul_fused(torch, shapes):
                 rec["library_ms"] = cuda_ms(
                     torch, lambda: torch.addmm(shift_lib, x, w_lib))
                 rec["bound_ms"], rec["bound_by"] = bound(m, k, n, dname)
-                if batch == SERVE_BATCH:
-                    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                        total[key] += per_fwd * rec[key]
-                    if rec["bound_by"] == "bytes":
-                        total["bytes_bound_ms"] += per_fwd * rec["bound_ms"]
+                timed[(m, k, n, act)] = rec
             emit(rec)
             if not ok:
                 failures.append(rec)
+    failures += check_large_m(torch, mf, gen)
     if failures:
         raise RuntimeError(f"conv1x1_bn_act disagrees with its plain version "
                            f"in {len(failures)} case(s)")
-    return total
+    totals = {}
+    for tag, shapes in path.items():
+        total = {"ms": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0,
+                 "library_ms": 0.0, "bound_ms": 0.0, "bytes_bound_ms": 0.0}
+        for key, per_fwd in shapes.items():
+            rec = timed[key]
+            for name in ("ms", "kernel_ms", "plain_ms", "library_ms",
+                         "bound_ms"):
+                total[name] += per_fwd * rec[name]
+            if rec["bound_by"] == "bytes":
+                total["bytes_bound_ms"] += per_fwd * rec["bound_ms"]
+        total["bound_by"] = ("bytes" if total["bytes_bound_ms"] * 2
+                             >= total["bound_ms"] else "operations")
+        totals[tag] = total
+    return totals, max_err
+
+
+def check_large_m(torch, mf, gen):
+    """Fault 3.1: one launch at M above 2^23 rows in bf16 and above 2^22 in
+    float32 (gridDim.y's limit before the output tiles moved to gridDim.x),
+    against the plain version. Returns the failed records."""
+    failures = []
+    for m, k, n, act, dname in LARGE_M:
+        dtype = torch.bfloat16 if dname == "bf16" else torch.float32
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(k, n, generator=gen, device="cuda")
+             / k ** 0.5).to(dtype)
+        scale = torch.rand(n, generator=gen, device="cuda") + 0.5
+        shift = torch.randn(n, generator=gen, device="cuda") * 0.5
+        out = mf.matmul_scale_act(x, w, scale, shift, act)
+        ref = mf.matmul_scale_act_plain(x, w, scale, shift, act)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        tol = KERNEL_TOL[dname]
+        rec = {"check": "conv1x1_bn_act_large_m", "dtype": dname, "M": m,
+               "K": k, "N": n, "act": act, "x_bytes": x.numel()
+               * x.element_size(), "max_abs_err": diff.max().item(),
+               "tol": tol,
+               "ok": bool((diff <= tol * (1 + ref.float().abs())).all())}
+        emit(rec)
+        if not rec["ok"]:
+            failures.append(rec)
+        del x, out, ref, diff
+    torch.cuda.empty_cache()
+    return failures
+
+
+def conv_bound(b, ho, wo, c, x_numel, w_numel, ops_per_out, dname):
+    """Least time (ms) of a conv: x and w read once and y written once
+    against the HBM rate; 2 * ``ops_per_out`` operations an output element
+    against the type's dense peak. Returns (ms, "bytes" | "operations")."""
+    e = 2 if dname == "bf16" else 4
+    y_numel = b * ho * wo * c
+    bytes_ms = (x_numel + w_numel + y_numel) * e / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * ops_per_out * y_numel / PEAK_OPS_PER_S[dname] * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def check_conv(torch, name, module, cases, make_w, dx_weight, library):
+    """Phase 2 for a conv kernel: at each case ((B, H, W, C), groups,
+    stride, padding, launches per forward (0 off the path), timed) in bf16
+    and float32, the
+    kernel against its plain version, and at stride 1 the autograd input
+    gradient (the same kernel on dy) against the plain version on the
+    prepared dy. Times the timed cases in bf16. Returns the summary: the
+    per-forward sums of the timed cases and the largest error."""
+    from convnet_tpu_torch.ops.kernels import _conv
+    dtypes = {"bf16": torch.bfloat16, "float32": torch.float32}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {"ms": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_ms": 0.0, "bytes_bound_ms": 0.0, "max_abs_err": 0.0,
+           "shapes": []}
+    failures = []
+    for shape, groups, stride, pad, per_fwd, timed in cases:
+        c = shape[-1]
+        for dname, dtype in dtypes.items():
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = make_w(c, groups, gen).to(dtype)
+            y = module.apply(x, w, stride, pad, groups)
+            ref = module.plain(x, w, stride, pad, groups)
+            torch.cuda.synchronize()
+            diff = (y.float() - ref.float()).abs()
+            tol = CONV_TOL[dname]
+            rec = {"check": name, "dtype": dname, "shape": list(shape),
+                   "groups": groups, "stride": stride, "padding": pad,
+                   "launches_per_forward": per_fwd,
+                   "max_abs_err": diff.max().item(), "tol": tol,
+                   "ok": bool((diff <= tol * (1 + ref.float().abs())).all())}
+            if stride == 1:
+                xg = x.detach().requires_grad_()
+                dy = torch.randn(ref.shape, generator=gen,
+                                 device="cuda").to(dtype)
+                (dx,) = torch.autograd.grad(
+                    module.apply(xg, w, stride, pad, groups), xg, dy)
+                dy_in, dpad = _conv.dx_geometry(dy, (3, 3), (pad, pad))
+                dx_ref = module.plain(dy_in, dx_weight(w, groups), 1, dpad,
+                                      groups)
+                torch.cuda.synchronize()
+                ddiff = (dx.float() - dx_ref.float()).abs()
+                rec["dx_max_abs_err"] = ddiff.max().item()
+                rec["dx_ok"] = bool((ddiff <= tol * (1 + dx_ref.float()
+                                                     .abs())).all())
+                rec["ok"] = rec["ok"] and rec["dx_ok"]
+            if per_fwd:
+                out["max_abs_err"] = max(out["max_abs_err"],
+                                         rec["max_abs_err"])
+            if timed and dname == "bf16":
+                rec["ms"] = cuda_ms(torch, lambda: module.apply(
+                    x, w, stride, pad, groups))
+                rec["plain_ms"] = cuda_ms(torch, lambda: module.plain(
+                    x, w, stride, pad, groups))
+                rec["library_ms"] = cuda_ms(torch, lambda: library(
+                    x, w, stride, pad, groups))
+                rec["kernel_ms"] = kernel_alone_ms(
+                    torch, module.launch(x, w, stride, pad, groups))
+                b, h, wd, _ = shape
+                ho, wo = (h + 2 * pad - 3) // stride + 1, \
+                    (wd + 2 * pad - 3) // stride + 1
+                rec["bound_ms"], rec["bound_by"] = conv_bound(
+                    b, ho, wo, c, x.numel(), w.numel(),
+                    9 * (c // groups), dname)
+                for key in ("ms", "kernel_ms", "plain_ms", "library_ms",
+                            "bound_ms"):
+                    out[key] += per_fwd * rec[key]
+                if rec["bound_by"] == "bytes":
+                    out["bytes_bound_ms"] += per_fwd * rec["bound_ms"]
+                out["shapes"].append({k: rec[k] for k in (
+                    "shape", "groups", "stride", "launches_per_forward",
+                    "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by")})
+            emit(rec)
+            if not rec["ok"]:
+                failures.append(rec)
+    if failures:
+        raise RuntimeError(f"{name} disagrees with its plain version in "
+                           f"{len(failures)} case(s)")
+    out["bound_by"] = ("bytes" if out["bytes_bound_ms"] * 2 >= out["bound_ms"]
+                       else "operations")
+    return out
+
+
+def check_grouped(torch):
+    """Kernel A at ResNeXt-50's stride-1 shapes (batch 64, timed; 128, as
+    ``validate`` runs it; and 1), the stride-2 shape and the ragged
+    cases."""
+    import types
+    import torch.nn.functional as F
+    from convnet_tpu_torch.ops.kernels import _conv
+    from convnet_tpu_torch.ops.kernels import grouped_conv as gc
+    cases = []
+    for (h, w, c), cg, per_fwd in GROUPED_PATH:
+        for batch in (SERVE_BATCH, TRAIN_BATCH, 1):
+            cases.append(((batch, h, w, c), c // cg, 1, 1, per_fwd,
+                          batch == SERVE_BATCH))
+    cases += [(shape, shape[-1] // cg, s, p, 0, False)
+              for shape, cg, s, p in GROUPED_MORE]
+    module = types.SimpleNamespace(
+        apply=gc.grouped_conv2d, plain=gc.grouped_conv2d_plain,
+        launch=lambda x, w, s, p, g: functools.partial(
+            _conv.launch, gc._kernel, "grouped_conv2d", x,
+            gc.kernel_weight(w), (3, 3), s, p, x.shape[-1] // g))
+
+    def make_w(c, groups, gen):
+        cg = c // groups
+        return torch.randn(c, cg, 3, 3, generator=gen,
+                           device="cuda") / (9 * cg) ** 0.5
+
+    def library(x, w, s, p, groups):   # cuDNN on the channels-last view
+        return F.conv2d(x.permute(0, 3, 1, 2), w, None, s, p, 1, groups)
+
+    return check_conv(torch, "grouped_conv2d", module, cases, make_w,
+                      gc.flip_transpose, library)
+
+
+def check_depthwise(torch):
+    """Kernel B at MobileNet v1's nine shapes (batch 64, timed; 128, as
+    training and ``validate`` run it; and 1) and the ragged cases."""
+    import types
+    import torch.nn.functional as F
+    from convnet_tpu_torch.ops.kernels import _conv
+    from convnet_tpu_torch.ops.kernels import depthwise_conv as dc
+    cases = [((batch, h, h, c), c, s, 1, per_fwd, batch == SERVE_BATCH)
+             for (h, c, s), per_fwd in DEPTHWISE_PATH
+             for batch in (SERVE_BATCH, TRAIN_BATCH, 1)]
+    cases += [(shape, shape[-1], s, p, 0, False)
+              for shape, s, p in DEPTHWISE_MORE]
+    module = types.SimpleNamespace(
+        apply=lambda x, w, s, p, g: dc.depthwise_conv2d(x, w, s, p),
+        plain=lambda x, w, s, p, g: dc.depthwise_conv2d_plain(x, w, s, p),
+        launch=lambda x, w, s, p, g: functools.partial(
+            _conv.launch, dc._kernel, "depthwise_conv2d", x,
+            dc.kernel_weight(w), (3, 3), s, p))
+
+    def make_w(c, groups, gen):
+        return torch.randn(c, 1, 3, 3, generator=gen, device="cuda") / 3
+
+    def library(x, w, s, p, groups):   # cuDNN on the channels-last view
+        return F.conv2d(x.permute(0, 3, 1, 2), w, None, s, p, 1, groups)
+
+    return check_conv(torch, "depthwise_conv2d", module, cases, make_w,
+                      lambda w, g: w.flip(-2, -1), library)
 
 
 def rel_err(a, b):
@@ -242,16 +529,16 @@ def pool_bound(shape, k, s, p, dname, idx):
 
 
 def check_max_pool(torch):
-    """Phase 2 for the pool kernels: correctness at the stem's shape (batch
-    128 and 1) and the ragged shapes, bf16 and float32, normal and tie-heavy
-    inputs; times at the stem at batch 128 in bf16, the training step's
-    shape and type. Returns {kernel name: summary}."""
+    """Phase 2 for the pool kernels: correctness at the stems' shapes
+    (batch 128 and 1) and the ragged shapes, bf16 and float32, normal and
+    tie-heavy inputs; times at ResNet-50's stem at batch 128 in bf16, the
+    training step's shape and type. Returns {kernel name: summary}."""
     import torch.nn.functional as F
     from convnet_tpu_torch.ops.kernels import max_pool as mp
     dtypes = {"bf16": torch.bfloat16, "float32": torch.float32}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    (h, w, c), k, s, p = STEM_POOL
-    cases = [((b, h, w, c), k, s, p, b) for b in (TRAIN_BATCH, 1)]
+    cases = [((b, h, w, c), k, s, p, b) for (h, w, c), k, s, p in STEM_POOLS
+             for b in (TRAIN_BATCH, 1)]
     cases += [(shape, k_, s_, p_, None) for shape, k_, s_, p_ in POOL_RAGGED]
     out = {name: {"max_abs_err": 0.0} for name in ("max_pool2d_fwd_idx",
                                                    "max_pool2d_bwd")}
@@ -294,13 +581,15 @@ def check_max_pool(torch):
                     fwd["max_abs_err"] = max(fwd["max_abs_err"], y_err)
                     bwd["max_abs_err"] = max(bwd["max_abs_err"], dx_err)
                 if batch == TRAIN_BATCH and dname == "bf16" \
-                        and inputs == "normal":
+                        and inputs == "normal" and shape[1:] == \
+                        STEM_POOLS[0][0]:
                     rec.update(time_pool(torch, F, mp, x, dy, idx, k_, s_,
                                          p_))
                     for name, (ms, by) in zip(
                             ("max_pool2d_fwd_idx", "max_pool2d_bwd"),
                             pool_bound(shape, k_, s_, p_, dname, idx)):
                         out[name].update(ms=rec[f"{name}_ms"],
+                                         kernel_ms=rec[f"{name}_kernel_ms"],
                                          plain_ms=rec[f"{name}_plain_ms"],
                                          library_ms=rec[f"{name}_library_ms"],
                                          bound_ms=ms, bound_by=by)
@@ -319,9 +608,18 @@ def time_pool(torch, F, mp, x, dy, idx, k, s, p):
     x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
     _, lib_idx = F.max_pool2d(x_nchw, k, s, p, return_indices=True)
     lib_bwd = torch.ops.aten.max_pool2d_with_indices_backward
+    fwd_fn, bwd_fn = mp._kernels()
+    dims = (*x.shape, *idx.shape[1:3], k, k, s, s, p, p)
+    y_out, idx_out, dx_out = (torch.empty_like(dy), torch.empty_like(idx),
+                              torch.empty_like(x))
     return {
         "max_pool2d_fwd_idx_ms": cuda_ms(
             torch, lambda: mp.max_pool2d_fwd_idx(x, k, s, p)),
+        "max_pool2d_fwd_idx_kernel_ms": kernel_alone_ms(
+            torch, lambda: mp._call(
+                fwd_fn, "max_pool2d_fwd_idx", (x.data_ptr(), y_out.data_ptr(),
+                                               idx_out.data_ptr()),
+                dims, x.dtype, x.device)),
         "max_pool2d_fwd_idx_plain_ms": cuda_ms(
             torch, lambda: mp.max_pool2d_fwd_idx_plain(x, k, s, p)),
         "max_pool2d_fwd_idx_library_ms": cuda_ms(
@@ -329,6 +627,11 @@ def time_pool(torch, F, mp, x, dy, idx, k, s, p):
                                         return_indices=True)),
         "max_pool2d_bwd_ms": cuda_ms(
             torch, lambda: mp.max_pool2d_bwd(dy, idx, x.shape, k, s, p)),
+        "max_pool2d_bwd_kernel_ms": kernel_alone_ms(
+            torch, lambda: mp._call(
+                bwd_fn, "max_pool2d_bwd", (dy.data_ptr(), idx.data_ptr(),
+                                           dx_out.data_ptr()),
+                dims, dy.dtype, dy.device)),
         "max_pool2d_bwd_plain_ms": cuda_ms(
             torch, lambda: mp.max_pool2d_bwd_plain(dy, idx, x.shape, k, s,
                                                    p)),
@@ -338,14 +641,19 @@ def time_pool(torch, F, mp, x, dy, idx, k, s, p):
     }
 
 
-def reset_counts(mf, mp):
-    mf.launches = mp.fwd_launches = mp.bwd_launches = 0
+def reset_counts(k):
+    k.mf.launches = k.mp.fwd_launches = k.mp.bwd_launches = 0
+    k.gc.launches = k.dc.launches = 0
 
 
-def counts(mf, mp):
-    return {"conv1x1_bn_act": mf.launches,
-            "max_pool2d_fwd_idx": mp.fwd_launches,
-            "max_pool2d_bwd": mp.bwd_launches}
+def counts(k):
+    return dict(zip(KERNEL_NAMES, (k.mf.launches, k.mp.fwd_launches,
+                                   k.mp.bwd_launches, k.gc.launches,
+                                   k.dc.launches)))
+
+
+def add_counts(a, b):
+    return {name: a[name] + b[name] for name in KERNEL_NAMES}
 
 
 def expect_counts(what, got, want):
@@ -354,18 +662,19 @@ def expect_counts(what, got, want):
         raise RuntimeError(f"{what}: kernel launches {got}, expected {want}")
 
 
-def make_trainer(torch, dtype, device):
+def make_trainer(torch, tag, dtype, device):
     from convnet_tpu_torch import models
     from convnet_tpu_torch.regimes.optim import OptimRegime
     from convnet_tpu_torch.train.trainer import Trainer, TrainerConfig
-    model = models.build("resnet", depth=50)
+    name, config = MODELS[tag][:2]
+    model = models.build(name, **config)
     tr = Trainer(model, OptimRegime(model.regime), 1000,
                  TrainerConfig(dtype=dtype), device=device, seed=SEED)
     tr.initialize()
     return tr
 
 
-def check_step_against_cpu(torch):
+def check_step_against_cpu(torch, tag):
     """Phase 4a: one float32 step on the card and on the CPU from the same
     weights (seed) and batch."""
     rng = np.random.default_rng(SEED + 1)
@@ -373,7 +682,7 @@ def check_step_against_cpu(torch):
     y = rng.integers(0, 1000, CHECK_BATCH)
     res = {}
     for where in ("cpu", None):
-        tr = make_trainer(torch, "float32", where)
+        tr = make_trainer(torch, tag, "float32", where)
         p0 = {n: q.detach().cpu().clone()
               for n, q in tr.model.named_parameters()}
         loss = float(tr.train_step(x, y)["loss"])
@@ -398,10 +707,10 @@ def check_step_against_cpu(torch):
     worst = max(per_tensor, key=per_tensor.get)
     stat_err = max(((s_gpu[n] - s_cpu[n]).abs()
                     / (1 + s_cpu[n].abs())).max().item() for n in s_cpu)
-    rec = {"check": "train_step_card_vs_cpu", "dtype": "float32",
-           "batch": CHECK_BATCH, "loss_cpu": l_cpu, "loss_card": l_gpu,
-           "loss_rel_err": loss_err, "update_norm_rel_err": total,
-           "update_worst_tensor": worst,
+    rec = {"check": "train_step_card_vs_cpu", "model": tag,
+           "dtype": "float32", "batch": CHECK_BATCH, "loss_cpu": l_cpu,
+           "loss_card": l_gpu, "loss_rel_err": loss_err,
+           "update_norm_rel_err": total, "update_worst_tensor": worst,
            "update_worst_tensor_norm_rel_err": per_tensor[worst],
            "update_max_elem_err_over_max": elem,
            "stats_max_err": stat_err, "tol": STEP_TOL}
@@ -409,12 +718,13 @@ def check_step_against_cpu(torch):
     if (loss_err > STEP_TOL["loss"] or stat_err > STEP_TOL["stats"]
             or total > STEP_TOL["update_norm"]
             or per_tensor[worst] > STEP_TOL["update_norm_per_tensor"]):
-        raise RuntimeError("the float32 step on the card disagrees with the "
-                           "CPU's")
+        raise RuntimeError(f"{tag}: the float32 step on the card disagrees "
+                           f"with the CPU's")
 
 
 # kernel name → share of the step, first match wins
 KERNEL_GROUPS = (("pool kernels", ("max_pool2d_",)),
+                 ("depthwise kernel", ("depthwise_conv2d_kernel",)),
                  ("convolutions", ("conv", "xmma", "gemm", "cutlass", "sm90",
                                    "dgrad", "wgrad", "cudnn")),
                  ("reductions", ("reduce_kernel",)),
@@ -422,21 +732,30 @@ KERNEL_GROUPS = (("pool kernels", ("max_pool2d_",)),
                  ("other elementwise", ("",)))
 
 
-def profile_step(torch, tr, x, y, card, step_ms, steps=2):
+def profile_step(torch, tag, tr, x, y, card, step_ms, steps=2):
     """Phase 4f: device time of a bf16 training step by kernel, from
     torch.profiler (CUDA activity only) over ``steps`` steps; the idle
     share is against ``step_ms``, the unprofiled step's p50 (the profiler's
-    own start-up would swamp the profiled wall time)."""
+    own start-up would swamp the profiled wall time). The profiler's CUPTI
+    tracing now and then records nothing: it is tried twice, and then the
+    breakdown is reported as not measured."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            float(tr.train_step(x, y)["loss"])
-    kernels = [(e.key, e.self_device_time_total / steps / 1e3,
-                e.count / steps) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(ms for _, ms, _ in kernels)
-    if busy_ms <= 0:
-        raise RuntimeError("the profiler recorded no device time")
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                float(tr.train_step(x, y)["loss"])
+        kernels = [(e.key, e.self_device_time_total / steps / 1e3,
+                    e.count / steps) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(ms for _, ms, _ in kernels)
+        if busy_ms > 0:
+            break
+    else:
+        log(f"{tag}: torch.profiler recorded no device time")
+        emit({"profile": f"{tag}_bf16_224_train_step", "card": card,
+              "step_p50_ms": step_ms, "device_busy_ms": None,
+              "note": "torch.profiler recorded no device time: not measured"})
+        return
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     for key, ms, _ in kernels:
         for name, needles in KERNEL_GROUPS:
@@ -444,7 +763,7 @@ def profile_step(torch, tr, x, y, card, step_ms, steps=2):
                 groups[name] += ms
                 break
     top = sorted(kernels, key=lambda k: -k[1])[:8]
-    emit({"profile": "resnet50_bf16_224_train_step", "card": card,
+    emit({"profile": f"{tag}_bf16_224_train_step", "card": card,
           "batch": TRAIN_BATCH, "step_p50_ms": step_ms,
           "device_busy_ms": busy_ms,
           "device_idle_share": max(0.0, 1 - busy_ms / step_ms),
@@ -454,10 +773,11 @@ def profile_step(torch, tr, x, y, card, step_ms, steps=2):
                           for k, ms, c in top]})
 
 
-def train(torch, card, mf, mp):
-    """Phase 4b-e: bf16 steps at TRAIN_BATCH, counted and timed; validate,
-    counted. Returns the path's launch counts."""
-    tr = make_trainer(torch, "bf16", None)
+def train(torch, card, k, tag):
+    """Phase 4b-e: bf16 steps at TRAIN_BATCH, counted and timed; the
+    profile; validate, counted. Returns the path's launch counts."""
+    _, _, per_forward, per_step, steps = MODELS[tag]
+    tr = make_trainer(torch, tag, "bf16", None)
     rng = np.random.default_rng(SEED + 2)
     x = torch.from_numpy(rng.standard_normal(
         (TRAIN_BATCH, 224, 224, 3)).astype(np.float32)).cuda()
@@ -465,79 +785,146 @@ def train(torch, card, mf, mp):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
-    reset_counts(mf, mp)
-    for i in range(TRAIN_STEPS):
-        before = counts(mf, mp)
+    reset_counts(k)
+    for i in range(steps):
+        before = counts(k)
         t = time.perf_counter()
         m = tr.train_step(x, y)
         loss = float(m["loss"])          # waits for the step
         times.append(time.perf_counter() - t)
         losses.append(loss)
-        step_counts = {k: v - before[k] for k, v in counts(mf, mp).items()}
+        step_counts = {n: v - before[n] for n, v in counts(k).items()}
         if i == 0:
-            expect_counts("one bf16 training step", step_counts,
-                          {"conv1x1_bn_act": 0, "max_pool2d_fwd_idx": 1,
-                           "max_pool2d_bwd": 1})
-        if step_counts != {"conv1x1_bn_act": 0, "max_pool2d_fwd_idx": 1,
-                           "max_pool2d_bwd": 1}:
-            raise RuntimeError(f"step {i}: launches {step_counts}")
+            expect_counts(f"{tag}: one bf16 training step", step_counts,
+                          per_step)
+        if step_counts != per_step:
+            raise RuntimeError(f"{tag} step {i}: launches {step_counts}")
     peak = torch.cuda.max_memory_allocated()
-    train_counts = counts(mf, mp)
-    log(f"bf16 losses over {TRAIN_STEPS} steps at batch {TRAIN_BATCH}: "
+    train_counts = counts(k)
+    log(f"{tag} bf16 losses over {steps} steps at batch {TRAIN_BATCH}: "
         + " ".join(f"{v:.4f}" for v in losses))
     if not all(np.isfinite(losses)):
-        raise RuntimeError(f"non-finite training loss: {losses}")
+        raise RuntimeError(f"{tag}: non-finite training loss: {losses}")
     # At the "normal" regime's lr 0.1 and momentum 0.9 the loss on one batch
     # falls for a few steps and then swings (the JAX trainer does the same on
     # a full-width ResNet-50 at 96x96 and batch 32 on the CPU); so the check
     # is that it falls below the first step's somewhere, and the mean of the
     # last five is reported beside it.
     if not min(losses[1:]) < losses[0]:
-        raise RuntimeError(f"the loss never fell below the first step's "
-                           f"{losses[0]}: {losses}")
+        raise RuntimeError(f"{tag}: the loss never fell below the first "
+                           f"step's {losses[0]}: {losses}")
     p50 = statistics.median(times[1:])
-    emit({"train": "resnet50_bf16_224", "card": card, "batch": TRAIN_BATCH,
-          "steps": TRAIN_STEPS, "losses": losses,
+    emit({"train": f"{tag}_bf16_224", "card": card, "batch": TRAIN_BATCH,
+          "steps": steps, "losses": losses,
           "last5_mean_loss": float(np.mean(losses[-5:])),
           "step_p50_ms": p50 * 1e3, "images_per_s": TRAIN_BATCH / p50,
           "max_memory_allocated_bytes": peak,
-          "note": "host clock around train_step, which ends with a read of "
-                  "the loss; p50 over steps 2-20"})
+          "note": f"host clock around train_step, which ends with a read of "
+                  f"the loss; p50 over steps 2-{steps}"})
 
-    profile_step(torch, tr, x, y, card, p50 * 1e3)
+    profile_step(torch, tag, tr, x, y, card, p50 * 1e3)
 
-    reset_counts(mf, mp)
+    reset_counts(k)
     val = tr.validate([(x, y)])
-    val_counts = counts(mf, mp)
-    expect_counts("validate, one batch", val_counts,
-                  {"conv1x1_bn_act": 33, "max_pool2d_fwd_idx": 1,
-                   "max_pool2d_bwd": 0})
+    val_counts = counts(k)
+    expect_counts(f"{tag}: validate, one batch", val_counts, per_forward)
     if not np.isfinite(val["loss"]):
-        raise RuntimeError(f"validate loss is not finite: {val}")
-    log(f"validate: {val}")
-    return {k: train_counts[k] + val_counts[k] for k in train_counts}
+        raise RuntimeError(f"{tag}: validate loss is not finite: {val}")
+    log(f"{tag} validate: {val}")
+    del tr
+    torch.cuda.empty_cache()
+    return add_counts(train_counts, val_counts)
+
+
+def serve(torch, card, k, tag, predictor, images):
+    """Phase 3 for one model: requests of 64, 17 and 1 images, counted and
+    checked; logits against the CPU's float32 forward; timings. Returns the
+    launch counts of the requests."""
+    from convnet_tpu_torch.serve import Predictor
+    name, config, per_forward = MODELS[tag][:3]
+    reset_counts(k)
+    t = time.perf_counter()
+    logits = [predictor.predict_logits(images[:n]) for n in REQUESTS]
+    serve_s = time.perf_counter() - t
+    serve_counts = counts(k)
+    log(f"{tag}: served {REQUESTS} images in {serve_s:.3f}s")
+    expect_counts(f"{tag} serving", serve_counts,
+                  {n: v * len(REQUESTS) for n, v in per_forward.items()})
+    for n, out in zip(REQUESTS, logits):
+        if out.shape != (n, 1000) or not np.isfinite(out).all():
+            raise RuntimeError(f"{tag}: bad logits for a request of {n}: "
+                               f"shape {out.shape}, finite "
+                               f"{np.isfinite(out).all()}")
+    for n, out in zip(REQUESTS[1:], logits[1:]):
+        diff = float(np.abs(out - logits[0][:n]).max())
+        log(f"{tag}: request of {n}: max |padded - full-batch| logit diff "
+            f"{diff:.3g}")
+        if diff > PAD_TOL:
+            raise RuntimeError(f"{tag}: padding changed the answers: {diff}")
+
+    ref_n = 2
+    cpu_ref = Predictor(name, config, dtype="float32", batch_size=ref_n,
+                        device="cpu", seed=SEED).predict_logits(images[:ref_n])
+    card_f32 = Predictor(name, config, dtype="float32", batch_size=ref_n,
+                         seed=SEED).predict_logits(images[:ref_n])
+    errs = {}
+    for dname, out in (("bf16", logits[0][:ref_n]), ("float32", card_f32)):
+        errs[dname] = rel_err(out, cpu_ref)
+        log(f"{tag}: card {dname} logits vs CPU float32 forward: max |diff| "
+            f"/ max |ref| = {errs[dname]:.3g} (tolerance {SERVE_TOL[dname]})")
+        if errs[dname] > SERVE_TOL[dname]:
+            raise RuntimeError(f"{tag}: {dname} logits disagree with the CPU "
+                               f"reference: {errs[dname]}")
+
+    times = []
+    for _ in range(20):
+        t = time.perf_counter()
+        predictor.predict_logits(images)
+        times.append(time.perf_counter() - t)
+    p50 = statistics.median(times)
+    single = Predictor(name, config, dtype="bf16", batch_size=1, seed=SEED)
+    one = images[:1]
+    for _ in range(3):
+        single.predict_logits(one)
+    lat = []
+    for _ in range(50):
+        t = time.perf_counter()
+        single.predict_logits(one)
+        lat.append(time.perf_counter() - t)
+    emit({"serve": f"{tag}_bf16_224", "card": card,
+          "batch64_p50_ms": p50 * 1e3,
+          "images_per_s": SERVE_BATCH / p50,
+          "batch1_p50_ms": statistics.median(lat) * 1e3,
+          "logits_rel_err_vs_cpu_float32": errs,
+          "note": "host clock around predict_logits, H2D and D2H included"})
+    return serve_counts
 
 
 def main():
     faulthandler.dump_traceback_later(HANG_LIMIT_S, exit=True)
+    import types
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from convnet_tpu_torch.ops.kernels import _build
+    from convnet_tpu_torch.ops.kernels import depthwise_conv as dc
+    from convnet_tpu_torch.ops.kernels import grouped_conv as gc
     from convnet_tpu_torch.ops.kernels import matmul_fused as mf
     from convnet_tpu_torch.ops.kernels import max_pool as mp
     from convnet_tpu_torch.serve import Predictor
+    k = types.SimpleNamespace(mf=mf, mp=mp, gc=gc, dc=dc)
     # full float32 in matmuls and convs: the float32 checks compare exactly
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    seconds = {}
 
     # -- 1. card and build
+    t0 = t = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     log(f"torch {torch.__version__} CUDA {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    t = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         builds = {name: pool.submit(_build.build, name) for name in KERNELS}
     for name, job in builds.items():
@@ -547,135 +934,115 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
     log(f"built {len(KERNELS)} libraries in {time.perf_counter() - t:.1f}s")
+    seconds["build"] = time.perf_counter() - t
 
-    # -- 2. the model, the path's shapes, and the kernel checks
-    config = {"depth": 50}
-    predictor = Predictor("resnet", config, dtype="bf16",
-                          batch_size=SERVE_BATCH, seed=SEED)
-    size = predictor.input_size
-    images = np.random.default_rng(SEED).integers(
-        0, 256, (SERVE_BATCH, size, size, 3), np.uint8)
-    shapes = path_shapes(torch, predictor, images)
-    per_forward = sum(shapes.values())
-    log(f"ResNet-50 {size}x{size}: {per_forward} kernel-route ConvBNs per "
-        f"forward over {len(shapes)} distinct (M, K, N, act)")
-    if per_forward != 33:
-        raise RuntimeError(f"expected 33 kernel-route ConvBNs, found "
-                           f"{per_forward}")
-    total = check_matmul_fused(torch, shapes)
+    # -- 2. the models, their paths' shapes, and the kernel checks
+    t = time.perf_counter()
+    predictors, path = {}, {}
+    images = None
+    for tag, (name, config, per_forward, _, _) in MODELS.items():
+        predictors[tag] = Predictor(name, config, dtype="bf16",
+                                    batch_size=SERVE_BATCH, seed=SEED)
+        size = predictors[tag].input_size
+        if images is None:
+            images = np.random.default_rng(SEED).integers(
+                0, 256, (SERVE_BATCH, size, size, 3), np.uint8)
+        path[tag] = path_shapes(torch, predictors[tag], images)
+        found = sum(path[tag].values())
+        log(f"{tag} {size}x{size}: {found} fused-route ConvBNs per forward "
+            f"over {len(path[tag])} distinct (M, K, N, act)")
+        if found != per_forward["conv1x1_bn_act"]:
+            raise RuntimeError(f"{tag}: expected "
+                               f"{per_forward['conv1x1_bn_act']} fused-route "
+                               f"ConvBNs, found {found}")
+    fused, fused_err = check_matmul_fused(torch, path)
     log("conv1x1_bn_act agrees with its plain version at every shape")
     pool = check_max_pool(torch)
     log("the pool kernels agree with their plain versions at every shape")
+    grouped = check_grouped(torch)
+    log("grouped_conv2d agrees with its plain version at every shape")
+    depthwise = check_depthwise(torch)
+    log("depthwise_conv2d agrees with its plain version at every shape")
+    seconds["kernels"] = time.perf_counter() - t
 
-    # -- 3. serve: the main path, counted
-    reset_counts(mf, mp)
+    # -- 3. serve: the main path, counted, model by model
     t = time.perf_counter()
-    logits = [predictor.predict_logits(images[:n]) for n in REQUESTS]
-    serve_s = time.perf_counter() - t
-    serve_counts = counts(mf, mp)
-    log(f"served {REQUESTS} images in {serve_s:.3f}s")
-    expect_counts("serving", serve_counts,
-                  {"conv1x1_bn_act": per_forward * len(REQUESTS),
-                   "max_pool2d_fwd_idx": len(REQUESTS),
-                   "max_pool2d_bwd": 0})
-    launches = serve_counts["conv1x1_bn_act"]
-    for n, out in zip(REQUESTS, logits):
-        if out.shape != (n, 1000) or not np.isfinite(out).all():
-            raise RuntimeError(f"bad logits for a request of {n}: shape "
-                               f"{out.shape}, finite {np.isfinite(out).all()}")
-    for n, out in zip(REQUESTS[1:], logits[1:]):
-        diff = float(np.abs(out - logits[0][:n]).max())
-        log(f"request of {n}: max |padded - full-batch| logit diff {diff:.3g}")
-        if diff > PAD_TOL:
-            raise RuntimeError(f"padding changed the answers: {diff}")
+    serve_counts = launches()
+    for tag in MODELS:
+        serve_counts = add_counts(serve_counts, serve(
+            torch, card, k, tag, predictors.pop(tag), images))
+        torch.cuda.empty_cache()
+    seconds["serve"] = time.perf_counter() - t
 
-    ref_n = 2
-    cpu_ref = Predictor("resnet", config, dtype="float32", batch_size=ref_n,
-                        device="cpu", seed=SEED).predict_logits(images[:ref_n])
-    card_f32 = Predictor("resnet", config, dtype="float32", batch_size=ref_n,
-                         seed=SEED).predict_logits(images[:ref_n])
-    for dname, out in (("bf16", logits[0][:ref_n]), ("float32", card_f32)):
-        err = rel_err(out, cpu_ref)
-        log(f"card {dname} logits vs CPU float32 forward: max |diff| / "
-            f"max |ref| = {err:.3g} (tolerance {SERVE_TOL[dname]})")
-        if err > SERVE_TOL[dname]:
-            raise RuntimeError(f"{dname} logits disagree with the CPU "
-                               f"reference: {err}")
-
-    times = []
-    for _ in range(20):
-        t = time.perf_counter()
-        predictor.predict_logits(images)
-        times.append(time.perf_counter() - t)
-    p50 = statistics.median(times)
-    single = Predictor("resnet", config, dtype="bf16", batch_size=1,
-                       seed=SEED)
-    one = images[:1]
-    for _ in range(3):
-        single.predict_logits(one)
-    lat = []
-    for _ in range(50):
-        t = time.perf_counter()
-        single.predict_logits(one)
-        lat.append(time.perf_counter() - t)
-    emit({"serve": "resnet50_bf16_224", "card": card,
-          "batch64_p50_ms": p50 * 1e3,
-          "images_per_s": SERVE_BATCH / p50,
-          "batch1_p50_ms": statistics.median(lat) * 1e3,
-          "note": "host clock around predict_logits, H2D and D2H included"})
-
-    del predictor, single
-
-    # -- 4. train: the second path, counted
-    check_step_against_cpu(torch)
-    train_counts = train(torch, card, mf, mp)
+    # -- 4. train: the second path, counted, model by model
+    t = time.perf_counter()
+    for tag in ("resnet50", "mobilenet_v1"):
+        check_step_against_cpu(torch, tag)
+    train_counts = launches()
+    for tag in MODELS:
+        train_counts = add_counts(train_counts, train(torch, card, k, tag))
     torch.cuda.synchronize()
+    seconds["train"] = time.perf_counter() - t
+    seconds["total"] = time.perf_counter() - t0
+    emit({"seconds_by_phase": seconds})
 
     # -- 5. summary
-    pool_rows = [{
-        "name": name,
-        "route": "cuda",
-        "source": "convnet_tpu_torch/csrc/max_pool.cu",
-        "replaces": replaces,
-        "launches": train_counts[name],
-        "launches_by_path": {"serve": serve_counts[name],
-                             "train": train_counts[name]},
-        "max_abs_err": pool[name]["max_abs_err"],
-        "ms": pool[name]["ms"],
-        "plain_ms": pool[name]["plain_ms"],
-        "bound_ms": pool[name]["bound_ms"],
-        "bound_by": pool[name]["bound_by"],
-        "library_ms": pool[name]["library_ms"],
-        "library_call": library,
-        "times_are": f"one call at the ResNet-50 stem, batch {TRAIN_BATCH}, "
-                     f"bf16",
-        "also_replaces": also,
-    } for name, replaces, also, library in (
-        ("max_pool2d_fwd_idx", "convnet_tpu/ops/pallas/pool.py:169", [],
-         "F.max_pool2d(..., return_indices=True), channels-last"),
-        ("max_pool2d_bwd", "convnet_tpu/ops/pallas/pool.py:272",
-         ["convnet_tpu/ops/pallas/pool_bwd.py:120"],
-         "aten.max_pool2d_with_indices_backward, channels-last"))]
-    emit({"kernels": [{
-        "name": "conv1x1_bn_act",
-        "route": "cuda",
-        "source": "convnet_tpu_torch/csrc/matmul_fused.cu",
-        "replaces": "convnet_tpu/ops/pallas/matmul_fused.py:50",
-        "launches": launches,
-        "launches_by_path": {"serve": launches,
-                             "train": train_counts["conv1x1_bn_act"]},
-        "max_abs_err": total["max_abs_err"],
-        "ms": total["ms"],
-        "kernel_ms": total["ms"],
-        "plain_ms": total["plain_ms"],
-        "bound_ms": total["bound_ms"],
-        "bound_by": ("bytes" if total["bytes_bound_ms"] * 2 >= total["bound_ms"]
-                     else "operations"),
-        "library_ms": total["library_ms"],
-        "library_call": "torch.addmm(shift, x, w * scale), no activation",
-        "times_are": f"sum over the {per_forward} launches of one batch-"
-                     f"{SERVE_BATCH} bf16 forward",
-    }, *pool_rows]})
+    # every row: ms, back-to-back wrapper calls timed with CUDA events (the
+    # wrapper's weight casts and copies included); kernel_ms, the kernel
+    # alone (its launches replayed from a CUDA graph); launches, the serving
+    # and the training runs together
+    def row(name, source, replaces, ms, kernel_ms, plain_ms, bound_ms,
+            bound_by, library_ms, library_call, max_err, times_are, **more):
+        return {"name": name, "route": "cuda",
+                "source": f"convnet_tpu_torch/csrc/{source}",
+                "replaces": f"convnet_tpu/ops/pallas/{replaces}",
+                "launches": serve_counts[name] + train_counts[name],
+                "launches_by_path": {"serve": serve_counts[name],
+                                     "train": train_counts[name]},
+                "max_abs_err": max_err, "ms": ms, "kernel_ms": kernel_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "library_call": library_call,
+                "times_are": times_are, **more}
+
+    rn = fused["resnet50"]
+    rows = [row("conv1x1_bn_act", "matmul_fused.cu", "matmul_fused.py:50",
+                rn["ms"], rn["kernel_ms"], rn["plain_ms"], rn["bound_ms"],
+                rn["bound_by"], rn["library_ms"],
+                "torch.addmm(shift, x, w * scale), no activation", fused_err,
+                f"sum over the 33 launches of one batch-{SERVE_BATCH} bf16 "
+                f"ResNet-50 forward",
+                per_forward_by_model={
+                    tag: {key: v[key] for key in ("ms", "kernel_ms",
+                                                  "plain_ms", "library_ms",
+                                                  "bound_ms")}
+                    for tag, v in fused.items()})]
+    for name, replaces, also, library in (
+            ("max_pool2d_fwd_idx", "pool.py:169", [],
+             "F.max_pool2d(..., return_indices=True), channels-last"),
+            ("max_pool2d_bwd", "pool.py:272",
+             ["convnet_tpu/ops/pallas/pool_bwd.py:120"],
+             "aten.max_pool2d_with_indices_backward, channels-last")):
+        pr = pool[name]
+        rows.append(row(name, "max_pool.cu", replaces, pr["ms"],
+                        pr["kernel_ms"], pr["plain_ms"], pr["bound_ms"],
+                        pr["bound_by"], pr["library_ms"], library,
+                        pr["max_abs_err"],
+                        f"one call at the ResNet-50 stem, batch "
+                        f"{TRAIN_BATCH}, bf16", also_replaces=also))
+    for name, source, replaces, res, model in (
+            ("grouped_conv2d", "grouped_conv.cu", "grouped.py:83", grouped,
+             "ResNeXt-50 32x4d"),
+            ("depthwise_conv2d", "depthwise_conv.cu", "depthwise.py:62",
+             depthwise, "MobileNet v1")):
+        rows.append(row(name, source, replaces, res["ms"], res["kernel_ms"],
+                        res["plain_ms"], res["bound_ms"], res["bound_by"],
+                        res["library_ms"],
+                        "F.conv2d(..., groups=) on the channels-last view",
+                        res["max_abs_err"],
+                        f"sum over the launches of one batch-{SERVE_BATCH} "
+                        f"bf16 {model} forward", shapes=res["shapes"]))
+    emit({"kernels": rows})
     faulthandler.cancel_dump_traceback_later()
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -136,8 +136,9 @@ __global__ void __launch_bounds__(THREADS)
                           __nv_bfloat16* __restrict__ out, int M, int K, int N,
                           int act) {
   __shared__ SmemBf16 sm;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int ntiles = (N + BN - 1) / BN;
+  const int m0 = (blockIdx.x / ntiles) * BM;
+  const int n0 = (blockIdx.x % ntiles) * BN;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int wm = (warp / WARPS_N) * WM;  // warp's first row in the tile
@@ -244,8 +245,9 @@ __global__ void __launch_bounds__(FTHREADS)
   __shared__ float bs[FBK][FB + 4];
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * FB;
-  const int n0 = blockIdx.x * FB;
+  const int ntiles = (N + FB - 1) / FB;
+  const int m0 = (blockIdx.x / ntiles) * FB;
+  const int n0 = (blockIdx.x % ntiles) * FB;
 
   float acc[4][4];
 #pragma unroll
@@ -293,6 +295,10 @@ __global__ void __launch_bounds__(FTHREADS)
   }
 }
 
+// Output tiles go on gridDim.x alone, N fastest: gridDim.y would cap M at
+// 65,535 tiles (8,388,480 rows in bf16).
+unsigned tiles(int n, int tile) { return (unsigned)((n + tile - 1) / tile); }
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -306,9 +312,11 @@ extern "C" int ctt_matmul_scale_act(const void* x, const void* w,
                                     int dtype, void* stream) {
   if (M <= 0 || N <= 0 || K < 0 || act < kActNone || act > kActRelu6)
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((unsigned long long)tiles(M, 64) * tiles(N, 64) > 0x7fffffffULL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+    const unsigned grid = tiles(M, BM) * tiles(N, BN);
     const auto* xb = static_cast<const __nv_bfloat16*>(x);
     const auto* wb = static_cast<const __nv_bfloat16*>(w);
     auto* ob = static_cast<__nv_bfloat16*>(out);
@@ -319,7 +327,7 @@ extern "C" int ctt_matmul_scale_act(const void* x, const void* w,
       matmul_scale_act_bf16<false>
           <<<grid, THREADS, 0, s>>>(xb, wb, scale, shift, ob, M, K, N, act);
   } else if (dtype == 0) {
-    const dim3 grid((N + FB - 1) / FB, (M + FB - 1) / FB);
+    const unsigned grid = tiles(M, FB) * tiles(N, FB);
     matmul_scale_act_f32<<<grid, FTHREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), scale,
         shift, static_cast<float*>(out), M, K, N, act);

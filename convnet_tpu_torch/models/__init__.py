@@ -1,10 +1,16 @@
 """Model registry — ``models.build(name, **config)`` (counterpart of
-convnet_tpu/models/__init__.py). Only ``"resnet"`` is ported so far."""
+convnet_tpu/models/__init__.py). Ported so far: the ImageNet ResNets,
+ResNeXt, the zero-init-residual ResNet and MobileNet v1."""
 
-from convnet_tpu_torch.models.resnet import ResNet_imagenet, resnet
+from convnet_tpu_torch.models.mobilenet import MobileNet, mobilenet
+from convnet_tpu_torch.models.resnet import ResNet_imagenet, resnet, resnext
+from convnet_tpu_torch.models.resnet_zi import resnet_zi
 
 REGISTRY = {
     "resnet": resnet,
+    "resnext": resnext,
+    "resnet_zi": resnet_zi,
+    "mobilenet": mobilenet,
 }
 
 
@@ -17,4 +23,5 @@ def build(name, **config):
     return factory(**config)
 
 
-__all__ = ["REGISTRY", "ResNet_imagenet", "build", "resnet"]
+__all__ = ["REGISTRY", "MobileNet", "ResNet_imagenet", "build", "mobilenet",
+           "resnet", "resnet_zi", "resnext"]

@@ -9,14 +9,16 @@ In eval, every 1x1 stride-1 ungrouped ``ConvBN`` runs as one fused kernel
 the JAX package takes with ``impl="pallas"``; on a CUDA tensor that is the
 hand-written kernel. At depth 50 that is 33 launches per forward. In
 training a ``ConvBN`` is conv → batch-statistics BN → ReLU. The stem's max
-pool runs the pool kernels (``ops/kernels/max_pool.py``) in both modes.
+pool runs the pool kernels (``ops/kernels/max_pool.py``) in both modes. In
+ResNeXt (``groups`` > 1) every eval stride-1 grouped 3x3 runs the grouped
+conv kernel (``nn.Conv2d.uses_grouped_kernel``): 13 per ResNeXt-50 forward.
 
 The model carries its own optimizer schedule, ``model.regime``, built by
 ``_make_regime`` (a copy of the JAX package's regimes).
 
-Not ported yet: the CIFAR ResNets, SE blocks, remat, ``zero_init_residual``,
-the ``s2d`` stem and the ``data_regime`` of ``regime="mixmatch"`` (it waits
-for the data pipeline).
+Not ported yet: the CIFAR ResNets, SE blocks, remat, the ``s2d`` stem and
+the ``data_regime`` of ``regime="mixmatch"`` (it waits for the data
+pipeline).
 """
 
 from __future__ import annotations
@@ -41,11 +43,11 @@ class ConvBN(nn.Module):
     """conv → BN (→ ReLU): the fusable unit."""
 
     def __init__(self, in_ch, out_ch, kernel, stride=1, padding=0, groups=1,
-                 relu=True):
+                 relu=True, zero_init_gamma=False):
         super().__init__()
         self.conv = Conv2d(in_ch, out_ch, kernel, stride, padding,
                            groups=groups)
-        self.bn = BatchNorm2d(out_ch)
+        self.bn = BatchNorm2d(out_ch, zero_init=zero_init_gamma)
         self.act = "relu" if relu else "none"
 
     def uses_kernel(self):
@@ -67,10 +69,12 @@ class ConvBN(nn.Module):
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, inplanes, planes, stride=1, downsample=None):
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 zero_init_residual=False):
         super().__init__()
-        self.cb1 = ConvBN(inplanes, planes, 3, stride, 1)
-        self.cb2 = ConvBN(planes, planes, 3, 1, 1, relu=False)
+        self.cb1 = ConvBN(inplanes, planes, 3, stride, 1, groups=groups)
+        self.cb2 = ConvBN(planes, planes, 3, 1, 1, groups=groups, relu=False,
+                          zero_init_gamma=zero_init_residual)
         self.downsample = downsample
 
     def forward(self, x):
@@ -82,11 +86,13 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, inplanes, planes, stride=1, downsample=None):
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 zero_init_residual=False):
         super().__init__()
         self.cb1 = ConvBN(inplanes, planes, 1)
-        self.cb2 = ConvBN(planes, planes, 3, stride, 1)
-        self.cb3 = ConvBN(planes, planes * self.expansion, 1, relu=False)
+        self.cb2 = ConvBN(planes, planes, 3, stride, 1, groups=groups)
+        self.cb3 = ConvBN(planes, planes * self.expansion, 1, relu=False,
+                          zero_init_gamma=zero_init_residual)
         self.downsample = downsample
 
     def forward(self, x):
@@ -95,14 +101,16 @@ class Bottleneck(nn.Module):
         return ops.relu(out + identity)
 
 
-def _make_layer(block_cls, inplanes, planes, num_blocks, stride=1):
+def _make_layer(block_cls, inplanes, planes, num_blocks, stride=1, groups=1,
+                zero_init_residual=False):
     out_ch = planes * block_cls.expansion
     downsample = None
     if stride != 1 or inplanes != out_ch:
         downsample = ConvBN(inplanes, out_ch, 1, stride, relu=False)
     blocks = [block_cls(inplanes if i == 0 else out_ch, planes,
                         stride=stride if i == 0 else 1,
-                        downsample=downsample if i == 0 else None)
+                        downsample=downsample if i == 0 else None,
+                        groups=groups, zero_init_residual=zero_init_residual)
               for i in range(num_blocks)]
     return Sequential(*blocks), out_ch
 
@@ -117,7 +125,8 @@ class ResNet_imagenet(nn.Module):
     }
 
     def __init__(self, depth=50, num_classes=1000, width=None, block=None,
-                 layers=None, regime="normal", batch_size=256, epochs=90):
+                 layers=None, regime="normal", batch_size=256, epochs=90,
+                 groups=1, zero_init_residual=False):
         super().__init__()
         if block is None or layers is None:
             if depth not in self.DEPTHS:
@@ -130,8 +139,9 @@ class ResNet_imagenet(nn.Module):
         stages = []
         inplanes = width[0]
         for i, (planes, n) in enumerate(zip(width, layers)):
-            stage, inplanes = _make_layer(block, inplanes, planes, n,
-                                          stride=1 if i == 0 else 2)
+            stage, inplanes = _make_layer(
+                block, inplanes, planes, n, stride=1 if i == 0 else 2,
+                groups=groups, zero_init_residual=zero_init_residual)
             stages.append(stage)
         self.layers = Sequential(
             *stages, names=[f"layer{i + 1}" for i in range(len(stages))])
@@ -217,3 +227,20 @@ def resnet(**config):
     num_classes = config.pop("num_classes", 1000)
     config.setdefault("depth", 50)
     return ResNet_imagenet(num_classes=num_classes, **config)
+
+
+class ResNeXtBottleneck(Bottleneck):
+    """ResNeXt bottleneck: wide grouped 3x3 with expansion 2 (so 32x4d stage
+    widths 128/256/512/1024 → outputs 256/.../2048)."""
+    expansion = 2
+
+
+def resnext(**config):
+    """ResNeXt (cardinality 32, 32x4d widths by default), the JAX package's
+    ``resnext`` (``models/resnet.py:368-376``)."""
+    config.setdefault("groups", 32)
+    config.setdefault("depth", 50)
+    config.setdefault("width", [128, 256, 512, 1024])
+    config.setdefault("block", ResNeXtBottleneck)
+    config.setdefault("layers", ResNet_imagenet.DEPTHS[config["depth"]][1])
+    return resnet(**config)

@@ -5,6 +5,12 @@ Parameters are float32 and are cast to the activations' dtype at use;
 BatchNorm running statistics stay float32. Weights are in PyTorch's layout:
 conv OIHW, linear (out, in). ``reset_parameters(generator)`` draws a layer's
 parameters from an explicit ``torch.Generator``.
+
+``Conv2d`` routes two kinds of conv to hand-written kernels by the JAX
+package's structural predicates, with no env flag and no ``impl`` knob: an
+eval grouped conv (cin == cout) to ``ops/kernels/grouped_conv.py`` and a
+depthwise conv, in training and in eval, to
+``ops/kernels/depthwise_conv.py``. Every other conv runs ``ops.conv2d``.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from torch import nn
 
 from convnet_tpu_torch import ops
 from convnet_tpu_torch.core import initializers as init
+from convnet_tpu_torch.ops.kernels import depthwise_conv, grouped_conv
 
 
 def _pair(v):
@@ -21,7 +28,7 @@ def _pair(v):
 
 
 class Conv2d(nn.Module):
-    """Bias-free NHWC conv; weight OIHW."""
+    """Bias-free NHWC conv; weight OIHW; dilation 1."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, groups=1):
@@ -40,7 +47,32 @@ class Conv2d(nn.Module):
     def reset_parameters(self, generator=None):
         self.weight.copy_(init.kaiming_normal(self.weight.shape, generator))
 
+    def uses_grouped_kernel(self):
+        """The reference's ``_pallas_grouped_ok`` (``nn/layers.py:66-84``)
+        without its v5e shape gate (H == 56, C == 128): eval, stride 1,
+        integer padding, and ``grouped_conv.supported``."""
+        return (not self.training
+                and _pair(self.stride) == (1, 1)
+                and isinstance(self.padding, int)
+                and grouped_conv.supported(
+                    (self.in_channels,), self.weight.shape, self.groups,
+                    self.stride))
+
+    def uses_depthwise_kernel(self):
+        """The reference's ``_pallas_depthwise_ok`` (``nn/layers.py:50-64``)
+        without its env flag: groups == cin == cout, stride <= 2, integer
+        padding; in training and in eval."""
+        return (self.groups == self.in_channels == self.out_channels
+                and isinstance(self.padding, int)
+                and depthwise_conv.supported(self.stride))
+
     def forward(self, x):
+        if self.uses_grouped_kernel():
+            return grouped_conv.grouped_conv2d(x, self.weight, self.stride,
+                                               self.padding, self.groups)
+        if self.uses_depthwise_kernel():
+            return depthwise_conv.depthwise_conv2d(x, self.weight,
+                                                   self.stride, self.padding)
         return ops.conv2d(x, self.weight, stride=self.stride,
                           padding=self.padding, groups=self.groups)
 
@@ -48,13 +80,17 @@ class Conv2d(nn.Module):
 class BatchNorm2d(nn.Module):
     """BN over NHWC channels: ``weight``/``bias`` (γ/β) and the float32
     ``running_mean``/``running_var`` buffers. In training it normalises with
-    the batch statistics and updates the buffers in place (torch momentum)."""
+    the batch statistics and updates the buffers in place (torch momentum).
+    ``zero_init`` sets γ to 0 instead of 1 (a zero-init residual branch);
+    ``reset_parameters`` keeps it."""
 
-    def __init__(self, num_features, eps=1e-5, momentum=0.1):
+    def __init__(self, num_features, eps=1e-5, momentum=0.1,
+                 zero_init=False):
         super().__init__()
         self.num_features = num_features
         self.eps = eps
         self.momentum = momentum
+        self.zero_init = zero_init
         self.weight = nn.Parameter(torch.empty(num_features))
         self.bias = nn.Parameter(torch.empty(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -63,7 +99,7 @@ class BatchNorm2d(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
-        self.weight.fill_(1.0)
+        self.weight.fill_(0.0 if self.zero_init else 1.0)
         self.bias.zero_()
 
     def folded(self):

@@ -1,0 +1,122 @@
+"""Grouped k x k convolution on NHWC with cin == cout: ResNeXt's 3x3.
+
+Counterpart of ``convnet_tpu/ops/pallas/grouped.py`` (``grouped_conv_pallas``,
+``_build_fwd.body``): y[b, i, j, g cg + o] = Σ over taps (di, dj), then over
+c < cg, of xpad[b, i s + di, j s + dj, g cg + c] · w[g cg + o, c, di, dj],
+with the grouped weight in the port's OIHW layout (C, cg, kh, kw), float32
+accumulation, and y in x's type.
+
+On a CUDA tensor :func:`grouped_conv2d` launches the kernel of
+``csrc/grouped_conv.cu`` or raises; on a CPU tensor it runs
+:func:`grouped_conv2d_plain`, which is also the kernel's oracle in the
+on-card checks. ``launches`` counts kernel launches only.
+
+The op is differentiable with the reference's backward (``grouped.py``
+:149-173): at stride 1 dx is the same kernel on dy, with the weight flipped
+in space and transposed within each group and padding k - 1 - p (a crop of
+dy where p > k - 1); at stride 2 dx is the library's transposed conv, and dw
+is the library's grouped weight gradient at every stride, as the reference
+leaves both to XLA.
+"""
+
+from __future__ import annotations
+
+import functools
+import types
+
+import torch
+
+from convnet_tpu_torch.ops.kernels import _build, _conv
+
+launches = 0  # kernel launches since the last reset (set it to 0 to reset)
+
+
+def supported(x_shape, w_shape, groups, stride, dilation=1):
+    """The reference's structural rule (``grouped.py:189``, with
+    ``ops/conv.py:_tiled_grouped_eligible``): a true grouped conv (not
+    dense, not depthwise) with cin == cout, C % 128 == 0, 128 % cg == 0,
+    dilation 1 and stride <= 2. ``w_shape`` is OIHW, (cout, cg, kh, kw)."""
+    cout, cg = w_shape[0], w_shape[1]
+    cin = x_shape[-1]
+    sh, sw = _conv.pair(stride)
+    return (groups > 1 and cg > 1 and cin == cout and cin % 128 == 0
+            and 128 % cg == 0 and _conv.pair(dilation) == (1, 1)
+            and sh <= 2 and sw <= 2)
+
+
+def _check(x, w, groups):
+    b, h, wd, c = x.shape
+    if groups <= 0 or c % groups or w.dim() != 4 or \
+            tuple(w.shape[:2]) != (c, c // groups):
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} with "
+                         f"groups={groups}: need cin == cout == C and an "
+                         f"OIHW weight (C, C/groups, kh, kw)")
+
+
+def grouped_conv2d_plain(x, w, stride=1, padding=0, groups=1):
+    """The kernel's function in plain PyTorch: per tap, one float32 einsum
+    over (B, Ho, Wo, G, cg) x (G, cg, cg), the taps added in order (di
+    outer, dj inner); cast back to x's type."""
+    _check(x, w, groups)
+    kernel, stride, padding, out_hw = _conv.geometry(
+        x.shape, tuple(w.shape[2:]), stride, padding)
+    b, _, _, c = x.shape
+    cg = c // groups
+    xp = _conv.pad_hw(x.float(), padding)
+    xp = xp.view(*xp.shape[:3], groups, cg)
+    wf = w.to(x.dtype).float().view(groups, cg, cg, *kernel)  # (G, o, c, .)
+    acc = None
+    for di, dj, rows, cols in _conv.taps(kernel, stride, out_hw):
+        term = torch.einsum("bhwgc,goc->bhwgo", xp[:, rows, cols],
+                            wf[..., di, dj])
+        acc = term if acc is None else acc + term
+    return acc.reshape(b, *out_hw, c).to(x.dtype)
+
+
+@functools.cache
+def _kernel():
+    return _conv.bind(_build.library("grouped_conv").ctt_grouped_conv2d, 13)
+
+
+def _forward(x, w, stride, padding, groups):
+    global launches
+    _check(x, w, groups)
+    if x.device.type == "cpu":
+        return grouped_conv2d_plain(x, w, stride, padding, groups)
+    y = _conv.launch(_kernel, "grouped_conv2d", x,
+                     kernel_weight(w.to(x.dtype)), tuple(w.shape[2:]),
+                     stride, padding, x.shape[-1] // groups)
+    launches += 1
+    return y
+
+
+def kernel_weight(w):
+    """The kernel's weight layout: (C, cg, kh, kw) → (kh*kw, cg, C), so a
+    warp's 32 output channels read neighbouring weights."""
+    return w.permute(2, 3, 1, 0).contiguous()
+
+
+def flip_transpose(w, groups):
+    """The dx weight: w'[g cg + c, o, di, dj] = w[g cg + o, c, k-1-di,
+    k-1-dj] (``_flip_transpose_tiles`` of the reference)."""
+    c, cg, kh, kw = w.shape
+    return (w.view(groups, cg, cg, kh, kw).transpose(1, 2)
+            .flip(-2, -1).reshape(c, cg, kh, kw))
+
+
+def _weight_grad(x, dy, kernel, stride, padding, groups):
+    """The library's grouped weight gradient, as XLA's in the reference."""
+    return torch.nn.grad.conv2d_weight(
+        x.permute(0, 3, 1, 2), (x.shape[-1], x.shape[-1] // groups, *kernel),
+        dy.permute(0, 3, 1, 2), stride, padding, 1, groups)
+
+
+_OP = types.SimpleNamespace(forward=_forward, dx_weight=flip_transpose,
+                            weight_grad=_weight_grad)
+
+
+def grouped_conv2d(x, w, stride=1, padding=0, groups=1):
+    """x (B, H, W, C); w (C, C/groups, kh, kw), cast to x's type; stride 1
+    or 2; padding >= 0. Returns y (B, Ho, Wo, C) in x's type.
+    Differentiable."""
+    return _conv.Conv.apply(_OP, x, w.to(x.dtype), stride, padding, groups)

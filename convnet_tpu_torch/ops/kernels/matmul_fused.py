@@ -78,6 +78,8 @@ def _launch(x, w, scale, shift, act):
         raise ValueError("x must be contiguous (M, K) row-major")
     m, k = x.shape
     n = w.shape[1]
+    if max(m, k, n) >= 2 ** 31:
+        raise ValueError(f"M, K, N = {m}, {k}, {n}: each must be below 2^31")
     # the kernel reads W as (N, K) row-major, i.e. the OIHW weight as stored;
     # cast to the compute type first, as the TPU kernel's caller does
     wt = w.t().to(x.dtype).contiguous()
@@ -86,17 +88,25 @@ def _launch(x, w, scale, shift, act):
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    fn = _kernel()
+    _call(x, wt, scale, shift, out, act)
+    launches += 1
+    return out
+
+
+def _call(x, wt, scale, shift, out, act):
+    """One launch on the current stream of x's device, uncounted: x (M, K)
+    and wt (N, K) contiguous in the compute type, scale and shift float32
+    (N,), out (M, N) in x's type."""
+    m, k = x.shape
+    n = wt.shape[0]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), wt.data_ptr(), scale.data_ptr(),
-                 shift.data_ptr(), out.data_ptr(), m, k, n, ACTS[act],
-                 _DTYPES[x.dtype], stream)
+        err = _kernel()(x.data_ptr(), wt.data_ptr(), scale.data_ptr(),
+                        shift.data_ptr(), out.data_ptr(), m, k, n, ACTS[act],
+                        _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"matmul_scale_act kernel launch failed: CUDA error "
                            f"{err} (M={m}, K={k}, N={n}, {x.dtype})")
-    launches += 1
-    return out
 
 
 class _MatmulScaleAct(torch.autograd.Function):
@@ -131,14 +141,19 @@ class _MatmulScaleAct(torch.autograd.Function):
         return dx.to(x.dtype), dw, dscale, dshift, None
 
 
-def matmul_scale_act(x, w, scale, shift, act="relu"):
+def matmul_scale_act(x, w, scale=None, shift=None, act="relu"):
     """``act((x @ w) * scale + shift)``: x (M, K), w (K, N), scale/shift (N,)
-    float32. Output in x's type. Differentiable."""
+    float32, None meaning 1 and 0. Output in x's type. Differentiable."""
+    n = w.shape[-1]
+    if scale is None:
+        scale = torch.ones(n, dtype=torch.float32, device=w.device)
+    if shift is None:
+        shift = torch.zeros(n, dtype=torch.float32, device=w.device)
     _check_args(x, w, scale, shift, act)
     return _MatmulScaleAct.apply(x, w, scale, shift, act)
 
 
-def conv1x1_bn_act(x, w, scale, shift, act="relu"):
+def conv1x1_bn_act(x, w, scale=None, shift=None, act="relu"):
     """Fused 1x1 conv + folded BN + activation on an NHWC input. ``w`` is
     the conv's OIHW weight, (Cout, Cin, 1, 1)."""
     b, h, wd, cin = x.shape

@@ -18,12 +18,23 @@ and of the float32 card-against-CPU check in chip_smoke.py:
                 package's variance formula and with a two-pass one)
   oscillation   full-width ResNet-50, batch 32, 96x96, bf16, "normal" regime:
                 20 steps on one batch under both trainers
+  resnext       the narrow ResNeXt of tests/test_torch_port_models.py
+                (width 64..512, 16 groups) at 32x32 with batch 4 and 8:
+                how far a 1e-7 input change moves the train-mode logits,
+                the port's float32 step against its float64 step, and the
+                port's three steps against the JAX trainer's (each from the
+                JAX state): loss, updates in norm (all, worst tensor), worst
+                element over its tensor's largest update, BN statistics
+  mobilenet     MobileNet v1 at width 0.25, 32x32, batch 2, 4 and 8: one
+                float32 step's loss, the port's float32 against its float64,
+                and the port's against the JAX trainer's
 
 Run from the repository root (minutes; the float64 and oscillation parts
 take the most):
 
     JAX_PLATFORMS=cpu PYTHONPATH=.:tests python scripts/port_numerics.py \
-        [sensitivity jax bf16_step bf16 float64 oscillation]
+        [sensitivity jax bf16_step bf16 float64 oscillation resnext
+         mobilenet]
 """
 
 import os
@@ -246,8 +257,104 @@ def oscillation():
           f"                            port {losses}")
 
 
+def _port_update(name, config, params, state, x, y, double):
+    """Loss and update (p1 - p0, float64) of one port step from the JAX
+    weights, in float32 or with every float32 cast made float64."""
+    import test_torch_port_models as M
+    tr = M._port_trainer(name, config, params, state)
+    model = tr.model
+    p0 = {k: v.detach().double().clone()
+          for k, v in model.named_parameters()}
+    saved_float = torch.Tensor.float
+    try:
+        if double:
+            torch.Tensor.float = (lambda t: t if t.dtype == torch.float64
+                                  else saved_float(t))
+            model.double()
+            tr._params = list(model.parameters())
+            tr.opt_state = tr.optim.init_state(tr._params)
+            tr.policy = type(tr.policy)(compute_dtype=torch.float64)
+        loss = float(tr.train_step(x, y)["loss"])
+    finally:
+        torch.Tensor.float = saved_float
+    return loss, {k: v.detach().double() - p0[k]
+                  for k, v in model.named_parameters()}
+
+
+def _update_errs(got, ref):
+    """(all updates in norm, worst tensor in norm, worst element over its
+    tensor's largest update) of ``got`` against ``ref`` (name → array)."""
+    flat = norm_err(np.concatenate([np.ravel(got[k]) for k in ref]),
+                    np.concatenate([np.ravel(ref[k]) for k in ref]))
+    tensor = max(norm_err(np.asarray(got[k]), np.asarray(ref[k]))
+                 for k in ref)
+    elem = max(float(np.abs(np.asarray(got[k]) - np.asarray(ref[k])).max()
+                     / np.abs(np.asarray(ref[k])).max()) for k in ref)
+    return flat, tensor, elem
+
+
+def resnext():
+    import test_torch_port_models as M
+    cfg = M.RESNEXT
+    for batch in (4, 8):
+        params, state = M._jax_init("resnext", cfg, seed=3)
+        batches = M._batches(M.STEPS, batch, cfg["num_classes"])
+        x, y = batches[0]
+        model = M._port("resnext", cfg, params, state).train()
+        noise = 1 + 1e-7 * np.random.default_rng(0).standard_normal(
+            x.shape).astype(np.float32)
+        with torch.no_grad():
+            a = model(torch.from_numpy(x))
+            b = model(torch.from_numpy(x * noise))
+        print(f"batch {batch}: logits moved by a 1e-7 input change "
+              f"{float((a - b).abs().max() / a.abs().max()):.3g} of the "
+              f"largest")
+        l32, u32 = _port_update("resnext", cfg, params, state, x, y, False)
+        l64, u64 = _port_update("resnext", cfg, params, state, x, y, True)
+        errs = _update_errs({k: v.numpy() for k, v in u32.items()},
+                            {k: v.numpy() for k, v in u64.items()})
+        print(f"batch {batch}: port float32 step against float64: loss "
+              f"{abs(l32 - l64) / l64:.3g}, updates in norm {errs[0]:.3g}, "
+              f"worst tensor {errs[1]:.3g}, worst element {errs[2]:.3g}")
+        j_tr = M._jax_trainer("resnext", cfg)
+        steps, _, _ = M._jax_steps(j_tr, batches, params, state)
+        tr = M._port_trainer("resnext", cfg, params, state)
+        for i, ((before, j_loss, (j_p, j_s)), (x, y)) in enumerate(
+                zip(steps, batches)):
+            M._load(tr, *before)
+            loss = float(tr.train_step(x, y)["loss"])
+            p, s = to_jax_params(tr.model.state_dict())
+            p0 = dict(T._leaves(before[0]))
+            ref = {k: v - p0[k] for k, v in T._leaves(j_p)}
+            got = {k: v - p0[k] for k, v in T._leaves(p)}
+            errs = _update_errs(got, ref)
+            rs, gs = dict(T._leaves(j_s)), dict(T._leaves(s))
+            stats = max(float((np.abs(gs[k] - rs[k])
+                               / (1 + np.abs(rs[k]))).max()) for k in rs)
+            print(f"batch {batch}, step {i + 1}, port against JAX: loss "
+                  f"{abs(loss - j_loss) / j_loss:.3g}, updates in norm "
+                  f"{errs[0]:.3g}, worst tensor {errs[1]:.3g}, worst "
+                  f"element {errs[2]:.3g}, BN statistics {stats:.3g}")
+
+
+def mobilenet():
+    import test_torch_port_models as M
+    cfg = M.MOBILENET
+    params, state = M._jax_init("mobilenet", cfg, seed=2)
+    for batch in (2, 4, 8):
+        x, y = M._batches(1, batch, cfg["num_classes"], seed=9)[0]
+        l32, _ = _port_update("mobilenet", cfg, params, state, x, y, False)
+        l64, _ = _port_update("mobilenet", cfg, params, state, x, y, True)
+        steps, _, _ = M._jax_steps(M._jax_trainer("mobilenet", cfg),
+                                   [(x, y)], params, state)
+        print(f"batch {batch}: step loss, port float32 against float64 "
+              f"{abs(l32 - l64) / l64:.3g}, port against JAX "
+              f"{abs(l32 - steps[0][1]) / steps[0][1]:.3g}")
+
+
 PARTS = {"sensitivity": sensitivity, "jax": jax_steps, "bf16_step": bf16_step,
-         "bf16": bf16_blocks, "float64": float64, "oscillation": oscillation}
+         "bf16": bf16_blocks, "float64": float64, "oscillation": oscillation,
+         "resnext": resnext, "mobilenet": mobilenet}
 
 if __name__ == "__main__":
     torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
