@@ -9,28 +9,32 @@ Run from the repository root with one CUDA card, nvcc and nvidia-smi:
 Without a card, or without the ``convnet_tpu_torch`` package beside it, it
 exits non-zero before printing any result. It imports nothing of JAX.
 
-Three models, each at full width, 224x224, weights drawn from a seed:
-ResNet-50, ResNeXt-50 32x4d and MobileNet v1.
+Four models, each at full width, 224x224, weights drawn from a seed:
+ResNet-50, ResNeXt-50 32x4d, MobileNet v1 and MobileNet-V2.
 
 1. card: name and power limit; the CUDA kernels are built with nvcc, one
    process per source, all started together.
 2. kernels: every kernel is held against its plain PyTorch version on the
-   card at each shape the three models' paths give it (serving: batch 64
+   card at each shape the four models' paths give it (serving: batch 64
    and 1; the stem pools: batch 128 and 1; the grouped conv at ResNeXt-50's
    stride-1 shapes and the depthwise conv at MobileNet v1's nine shapes,
-   each at batch 64, 128 (training and ``validate``) and 1; bf16 and
-   float32), at ragged shapes, and for the convs' stride-1 input gradients,
-   which run the same kernels; the fused 1x1 kernel also at M above 2^23
-   rows. Kernel, plain version and the nearest library call are timed with
-   CUDA events, and the kernel alone (its launches replayed from a CUDA
-   graph) with CUDA events too.
+   each at batch 64, 128 (training and ``validate``) and 1; the MBConv
+   kernels at MobileNet-V2's 13 fused blocks, Full at batch 64 and 1,
+   Stats and Raw at 128; bf16 and float32), at ragged shapes, and for the
+   convs' stride-1 input gradients, which run the same kernels; the fused
+   1x1 kernel also at M above 2^23 rows; the Stats and Raw sums of two runs
+   must be bit-equal. Kernel, plain version and the nearest library call
+   (for MBConv the unfused chain of library calls) are timed with CUDA
+   events, and the kernel alone (its launches replayed from a CUDA graph)
+   with CUDA events too.
 3. serve: each model answers requests of 64, 17 and 1 uint8 images. The
    launch counts are set to 0 just before and read just after; each kernel
    must have launched its share. The logits must be finite, unchanged by
    the padding rows, and agree with the port's plain float32 forward on the
    CPU. Then the card's serving throughput and batch-1 latency are timed.
-4. train: each model in the port's ``Trainer`` with its "normal" regime.
-   ResNet-50 and MobileNet v1: one float32 step on the card (TF32 off)
+4. train: each model in the port's ``Trainer`` with its "normal" regime
+   (SGD; RMSprop for MobileNet-V2). ResNet-50, MobileNet v1 and
+   MobileNet-V2 (dropout 0): one float32 step on the card (TF32 off)
    against the same step on the CPU. bf16 steps at batch 128 on one random
    batch (20 for ResNet-50, 10 for the others), counted and timed; two more
    under torch.profiler, whose device time is broken down by kernel; and
@@ -77,7 +81,7 @@ KERNEL_TOL = {"bf16": 1e-2, "float32": 1e-4}
 SERVE_TOL = {"bf16": 5e-2, "float32": 1e-3}
 PAD_TOL = 1e-3  # the same rows in a batch of 64 padded or full
 KERNELS = ("matmul_fused", "max_pool", "grouped_conv",
-           "depthwise_conv")                     # csrc/<name>.cu
+           "depthwise_conv", "mbconv")           # csrc/<name>.cu
 TRAIN_BATCH = 128     # bf16 steps; BN keeps float32 copies for its backward
 CHECK_BATCH = 4       # the float32 step held against the CPU
 # the stem pools of ResNet-50 and ResNeXt-50: (H, W, C), kernel, stride, pad
@@ -108,13 +112,28 @@ DEPTHWISE_MORE = [((2, 15, 13, 3), 2, 1), ((2, 9, 9, 17), 1, 1),
 #   bf16: the same float32 sums, rounded to bf16, may land one ulp (2^-8
 #         relative) apart.
 CONV_TOL = {"bf16": 1e-2, "float32": 1e-5}
+# MBConv off MobileNet-V2's path: (B, H, W, Cin, hidden, Cout, expand,
+# residual): ragged H and W, W odd, C % 8 != 0, no expand, a 1x1 image
+MBCONV_RAGGED = [(2, 15, 13, 5, 17, 5, True, True),
+                 (2, 9, 9, 12, 12, 7, False, False),
+                 (1, 7, 5, 40, 100, 40, True, True),
+                 (3, 1, 1, 8, 24, 8, True, False)]
+# MBConv kernels vs plain versions: y and h3 |err| <= tol * (1 + |ref|), as
+# the fused 1x1 (float32: summation order of the two products; bf16: u2 and
+# the output may round one ulp apart). Σ within SUM_TOL of sqrt(n Σ²) and Σ²
+# within SUM_TOL of itself: float32 sums over up to 1.6M pixels in another
+# order, of depthwise outputs that differ in the last bits.
+MBCONV_TOL = {"bf16": 1e-2, "float32": 1e-4}
+SUM_TOL = 5e-5
 KERNEL_NAMES = ("conv1x1_bn_act", "max_pool2d_fwd_idx", "max_pool2d_bwd",
-                "grouped_conv2d", "depthwise_conv2d")
+                "grouped_conv2d", "depthwise_conv2d", "mbconv_full",
+                "mbconv_stats", "mbconv_raw")
 
 
-def launches(conv1x1=0, pool_fwd=0, pool_bwd=0, grouped=0, depthwise=0):
+def launches(conv1x1=0, pool_fwd=0, pool_bwd=0, grouped=0, depthwise=0,
+             mb_full=0, mb_stats=0, mb_raw=0):
     return dict(zip(KERNEL_NAMES, (conv1x1, pool_fwd, pool_bwd, grouped,
-                                   depthwise)))
+                                   depthwise, mb_full, mb_stats, mb_raw)))
 
 
 # tag → (models.build name, config, launches per serving or validate
@@ -127,6 +146,14 @@ MODELS = {
     "mobilenet_v1": ("mobilenet", {}, launches(13, depthwise=13),
                      # 13 forwards and the 9 stride-1 input gradients
                      launches(depthwise=13 + 9), 10),
+    # eval: 13 fused blocks; the 4 stride-2 blocks' expand and project and
+    # the last 1x1 on the fused 1x1, their depthwise convs on theirs. A step:
+    # each fused block a Stats and a Raw pass; the depthwise kernel for the
+    # 4 stride-2 forwards, and in each fused block's backward its recompute
+    # and its stride-1 dx (13 + 13)
+    "mobilenet_v2": ("mobilenet_v2", {}, launches(9, depthwise=4, mb_full=13),
+                     launches(depthwise=4 + 13 + 13, mb_stats=13, mb_raw=13),
+                     10),
 }
 POOL_RAGGED = [((2, 15, 13, 3), 3, 2, 1),   # odd H, W; C = 3: scalar path
                ((2, 8, 8, 5), 2, 2, 0),     # non-overlapping windows
@@ -141,9 +168,12 @@ POOL_DX_TOL = {"bf16": 1e-2, "float32": 0.0}
 # float32 gradient of the deep layers is itself uncertain at the percent
 # level (the CPU's float32 step against the same step in float64: updates
 # 2.2% apart in norm overall, 2.6% in the worst tensor), so the updates are
-# held in norm, overall and per tensor, at about twice that.
+# held in norm, overall and per tensor, at about twice that. A tensor's error
+# is over its update's norm plus 1e-4 of all updates' norm: in MobileNet-V2
+# the shift of a project BN that feeds the next block's expand BN has a zero
+# gradient, so its update is rounding noise.
 STEP_TOL = {"loss": 1e-4, "stats": 1e-4, "update_norm": 5e-2,
-            "update_norm_per_tensor": 1e-1}
+            "update_norm_per_tensor": 1e-1, "tensor_floor": 1e-4}
 
 T0 = time.perf_counter()
 
@@ -506,6 +536,218 @@ def check_depthwise(torch):
                       lambda w, g: w.flip(-2, -1), library)
 
 
+def mbconv_shapes(torch, predictor, images):
+    """(H, W, Cin, hidden, Cout, expand, residual) → launches per forward,
+    for every inverted residual on the fused route, read by hooks during
+    one forward of ``images``."""
+    from convnet_tpu_torch.models.mobilenet_v2 import InvertedResidual
+    counts = {}
+
+    def hook(mod, args):
+        _, h, w, cin = args[0].shape
+        block = list(mod.block)
+        key = (h, w, cin, mod.hidden, block[-1].conv.out_channels,
+               mod.has_expand, mod.use_res)
+        counts[key] = counts.get(key, 0) + 1
+
+    handles = [m.register_forward_pre_hook(hook)
+               for m in predictor.model.modules()
+               if isinstance(m, InvertedResidual) and m.uses_kernel()]
+    try:
+        predictor.predict_logits(images)
+    finally:
+        for h in handles:
+            h.remove()
+    return counts
+
+
+def mbconv_work(b, h, w, cin, ch, cout, expand, mode, dname):
+    """(bytes, operations) a call must move and do: x, the weights and the
+    per-channel vectors read once, the outputs written once; 2 operations a
+    multiply-add of the expand, the 9 taps and (Full, Raw) the project."""
+    e = 2 if dname == "bf16" else 4
+    n = b * h * w
+    read = n * cin * e + 9 * ch * 4 + 4 * ch * 4
+    macs = 9 * ch
+    if expand:
+        read += cin * ch * e
+        macs += cin * ch
+    if mode == "stats":
+        written = 2 * ch * 4
+    else:
+        read += ch * cout * e + 2 * cout * 4
+        macs += ch * cout
+        written = n * cout * e + (2 * cout * 4 if mode == "raw" else 0)
+    return read + written, 2 * n * macs
+
+
+def mbconv_inputs(torch, gen, b, h, w, cin, ch, cout, expand, dtype):
+    """x, we, s1, t1, wd9, s2, t2, wp, s3, t3 on the card: x and the weights
+    at unit-scale products, the scales near 1 and the shifts near 0.2 so
+    that ReLU6 clips at both ends somewhere."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    x = r(b, h, w, cin).to(dtype)
+    we = r(cin, ch) / cin ** 0.5 if expand else None
+    vec = [r(ch) * 0.2 + 1.0, r(ch) * 0.2 + 0.2]
+    return (x, we, *vec, r(9, ch) / 3, r(ch) * 0.2 + 1.0, r(ch) * 0.2 + 0.2,
+            r(ch, cout) / ch ** 0.5, r(cout) * 0.2 + 1.0, r(cout) * 0.2)
+
+
+def mbconv_library(torch, F, mode, x, we, s1, t1, wd9, s2, t2, wp, s3, t3,
+                   residual):
+    """The same function as a chain of library calls in x's type (timed
+    only, never used by the port): addmm for the expand with s1 folded into
+    the weight, clamp, cuDNN's depthwise conv on the channels-last view,
+    the BN affine and clamp, addmm for the project (+ x), or the sums."""
+    b, h, w, cin = x.shape
+    ch = wd9.shape[1]
+    v = x.reshape(-1, cin)
+    if we is not None:
+        v = torch.addmm(t1.to(x.dtype), v, (we * s1).to(x.dtype)).clamp_(0, 6)
+    d = F.conv2d(v.view(b, h, w, ch).permute(0, 3, 1, 2),
+                 wd9.t().reshape(ch, 1, 3, 3).to(x.dtype), None, 1, 1, 1, ch)
+    d = d.permute(0, 2, 3, 1).reshape(-1, ch)
+    if mode == "stats":
+        d = d.float()
+        return torch.stack([d.sum(0), (d * d).sum(0)])
+    u2 = (d * s2.to(x.dtype) + t2.to(x.dtype)).clamp_(0, 6)
+    if mode == "raw":
+        h3 = u2 @ wp.to(x.dtype)
+        h32 = h3.float()
+        return h3, torch.stack([h32.sum(0), (h32 * h32).sum(0)])
+    y = torch.addmm(t3.to(x.dtype), u2, (wp * s3).to(x.dtype))
+    return y + x.reshape(-1, cin) if residual else y
+
+
+def check_mbconv(torch, path):
+    """Phase 2 for the MBConv kernels: at every fused block of MobileNet-V2's
+    path (``path``: (H, W, Cin, hidden, Cout, expand, residual) → launches
+    per forward), Full at batch 64 and 1, Stats and Raw at batch 128, and at
+    the ragged cases, in bf16 and float32, each mode against its plain
+    version; the sums of two Stats and two Raw runs bit-equal. Times in bf16
+    at batch 64 (Full) and 128 (Stats, Raw), the paths' types and batches.
+    Returns {mode: summary} with per-forward (Full) or per-step sums."""
+    import torch.nn.functional as F
+    from convnet_tpu_torch.ops.kernels import mbconv as mb
+    dtypes = {"bf16": torch.bfloat16, "float32": torch.float32}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = []
+    for key, per_fwd in sorted(path.items()):
+        h, w, cin, ch, cout, expand, residual = key
+        for mode, batches in (("full", (SERVE_BATCH, 1)),
+                              ("stats", (TRAIN_BATCH,)),
+                              ("raw", (TRAIN_BATCH,))):
+            for b in batches:
+                cases.append((mode, (b, h, w, cin, ch, cout, expand,
+                                     residual), per_fwd,
+                              b in (SERVE_BATCH, TRAIN_BATCH)))
+    cases += [(mode, shape, 0, False) for shape in MBCONV_RAGGED
+              for mode in ("full", "stats", "raw")]
+    names = {"full": "mbconv_full", "stats": "mbconv_stats",
+             "raw": "mbconv_raw"}
+    out = {mode: {"ms": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0,
+                  "library_ms": 0.0, "bound_ms": 0.0, "bytes_bound_ms": 0.0,
+                  "cuda_core_floor_ms": 0.0, "max_abs_err": 0.0,
+                  "shapes": []} for mode in names}
+    failures = []
+    for mode, shape, per_fwd, timed in cases:
+        b, h, w, cin, ch, cout, expand, residual = shape
+        for dname, dtype in dtypes.items():
+            args = mbconv_inputs(torch, gen, b, h, w, cin, ch, cout, expand,
+                                 dtype)
+            x, we, s1, t1, wd9, s2, t2, wp, s3, t3 = args
+            kw = {"residual": residual} if mode == "full" else {}
+            fn, plain, head = {
+                "full": (mb.mbconv_full, mb.mbconv_full_plain, args),
+                "stats": (mb.mbconv_stats, mb.mbconv_stats_plain, args[:5]),
+                "raw": (mb.mbconv_raw, mb.mbconv_raw_plain, args[:8]),
+            }[mode]
+            got, ref = fn(*head, **kw), plain(*head, **kw)
+            again = fn(*head) if mode != "full" else None
+            torch.cuda.synchronize()
+            tol = MBCONV_TOL[dname]
+            rec = {"check": names[mode], "dtype": dname, "shape": list(shape),
+                   "launches_per_forward": per_fwd, "tol": tol,
+                   "sum_tol": SUM_TOL}
+            ok = True
+            if mode != "stats":
+                y, y_ref = (got, ref) if mode == "full" else (got[0], ref[0])
+                diff = (y.float() - y_ref.float()).abs()
+                rec["max_abs_err"] = diff.max().item()
+                ok = bool((diff <= tol * (1 + y_ref.float().abs())).all())
+            if mode != "full":
+                sums, sums_ref = (got, ref) if mode == "stats" else \
+                    (got[1], ref[1])
+                again_sums = again if mode == "stats" else again[1]
+                n = b * h * w
+                scale = torch.stack([(n * sums_ref[1]).sqrt(), sums_ref[1]])
+                sdiff = (sums - sums_ref).abs()
+                rec["sums_max_err_over_scale"] = (
+                    sdiff / scale.clamp_min(1e-30)).max().item()
+                rec["sums_bit_equal_across_runs"] = bool(
+                    torch.equal(sums, again_sums))
+                ok = ok and bool((sdiff <= SUM_TOL * scale).all()) \
+                    and rec["sums_bit_equal_across_runs"]
+                rec.setdefault("max_abs_err", sdiff.max().item())
+            rec["ok"] = ok
+            if per_fwd:
+                out[mode]["max_abs_err"] = max(out[mode]["max_abs_err"],
+                                               rec["max_abs_err"])
+            if timed and dname == "bf16":
+                rec.update(time_mbconv(torch, F, mb, mode, args, residual,
+                                       fn, plain, head, kw))
+                nbytes, ops = mbconv_work(b, h, w, cin, ch, cout, expand,
+                                          mode, dname)
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = ops / PEAK_OPS_PER_S[dname] * 1e3
+                rec["bound_ms"] = max(bytes_ms, ops_ms)
+                rec["bound_by"] = "bytes" if bytes_ms >= ops_ms \
+                    else "operations"
+                rec["cuda_core_floor_ms"] = \
+                    ops / PEAK_OPS_PER_S["float32"] * 1e3
+                summary = out[mode]
+                for key in ("ms", "kernel_ms", "plain_ms", "library_ms",
+                            "bound_ms", "cuda_core_floor_ms"):
+                    summary[key] += per_fwd * rec[key]
+                if rec["bound_by"] == "bytes":
+                    summary["bytes_bound_ms"] += per_fwd * rec["bound_ms"]
+                summary["shapes"].append({k: rec[k] for k in (
+                    "shape", "launches_per_forward", "ms", "kernel_ms",
+                    "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "cuda_core_floor_ms")})
+            emit(rec)
+            if not ok:
+                failures.append(rec)
+            del args, got, again, ref
+    if failures:
+        raise RuntimeError(f"the MBConv kernels disagree with their plain "
+                           f"versions in {len(failures)} case(s)")
+    for summary in out.values():
+        summary["bound_by"] = ("bytes" if summary["bytes_bound_ms"] * 2
+                               >= summary["bound_ms"] else "operations")
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_mbconv(torch, F, mb, mode, args, residual, fn, plain, head, kw):
+    """Device ms per call of the wrapper, the kernel alone (bare launches
+    of the prepared arguments from a CUDA graph), the plain version and the
+    library chain."""
+    x, we = args[0], args[1]
+    tensors, tile_hw = mb.kernel_args(*head, mode=mode)
+    outs = mb.outputs(mode, x, args[4].shape[1], args[7].shape[1])
+    return {
+        "ms": cuda_ms(torch, lambda: fn(*head, **kw)),
+        "kernel_ms": kernel_alone_ms(torch, lambda: mb.call(
+            mode, tensors, tile_hw, outs, **kw)),
+        "plain_ms": cuda_ms(torch, lambda: plain(*head, **kw)),
+        "library_ms": cuda_ms(torch, lambda: mbconv_library(
+            torch, F, mode, *args, residual)),
+    }
+
+
 def rel_err(a, b):
     return float(np.abs(a - b).max() / np.abs(b).max())
 
@@ -644,12 +886,14 @@ def time_pool(torch, F, mp, x, dy, idx, k, s, p):
 def reset_counts(k):
     k.mf.launches = k.mp.fwd_launches = k.mp.bwd_launches = 0
     k.gc.launches = k.dc.launches = 0
+    k.mb.full_launches = k.mb.stats_launches = k.mb.raw_launches = 0
 
 
 def counts(k):
     return dict(zip(KERNEL_NAMES, (k.mf.launches, k.mp.fwd_launches,
                                    k.mp.bwd_launches, k.gc.launches,
-                                   k.dc.launches)))
+                                   k.dc.launches, k.mb.full_launches,
+                                   k.mb.stats_launches, k.mb.raw_launches)))
 
 
 def add_counts(a, b):
@@ -662,27 +906,27 @@ def expect_counts(what, got, want):
         raise RuntimeError(f"{what}: kernel launches {got}, expected {want}")
 
 
-def make_trainer(torch, tag, dtype, device):
+def make_trainer(torch, tag, dtype, device, **overrides):
     from convnet_tpu_torch import models
     from convnet_tpu_torch.regimes.optim import OptimRegime
     from convnet_tpu_torch.train.trainer import Trainer, TrainerConfig
     name, config = MODELS[tag][:2]
-    model = models.build(name, **config)
+    model = models.build(name, **config, **overrides)
     tr = Trainer(model, OptimRegime(model.regime), 1000,
                  TrainerConfig(dtype=dtype), device=device, seed=SEED)
     tr.initialize()
     return tr
 
 
-def check_step_against_cpu(torch, tag):
+def check_step_against_cpu(torch, tag, **overrides):
     """Phase 4a: one float32 step on the card and on the CPU from the same
-    weights (seed) and batch."""
+    weights (seed) and batch; ``overrides`` change the model's config."""
     rng = np.random.default_rng(SEED + 1)
     x = rng.standard_normal((CHECK_BATCH, 224, 224, 3)).astype(np.float32)
     y = rng.integers(0, 1000, CHECK_BATCH)
     res = {}
     for where in ("cpu", None):
-        tr = make_trainer(torch, tag, "float32", where)
+        tr = make_trainer(torch, tag, "float32", where, **overrides)
         p0 = {n: q.detach().cpu().clone()
               for n, q in tr.model.named_parameters()}
         loss = float(tr.train_step(x, y)["loss"])
@@ -696,10 +940,12 @@ def check_step_against_cpu(torch, tag):
     if any(not torch.equal(p0_cpu[n], p0_gpu[n]) for n in p0_cpu):
         raise RuntimeError("the card and the CPU drew different weights")
     loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    all_norm = sum(u_cpu[n].square().sum() for n in u_cpu).sqrt()
+    floor = STEP_TOL["tensor_floor"] * all_norm
     per_tensor = {n: ((u_gpu[n] - u_cpu[n]).norm()
-                      / (u_cpu[n].norm() + 1e-30)).item() for n in u_cpu}
+                      / (u_cpu[n].norm() + floor)).item() for n in u_cpu}
     total = (sum((u_gpu[n] - u_cpu[n]).square().sum() for n in u_cpu)
-             / sum(u_cpu[n].square().sum() for n in u_cpu)).sqrt().item()
+             .sqrt() / all_norm).item()
     # reported, not checked: the largest element error over its tensor's
     # largest update
     elem = max((u_gpu[n] - u_cpu[n]).abs().max().item()
@@ -724,6 +970,7 @@ def check_step_against_cpu(torch, tag):
 
 # kernel name → share of the step, first match wins
 KERNEL_GROUPS = (("pool kernels", ("max_pool2d_",)),
+                 ("mbconv kernels", ("mbconv_",)),
                  ("depthwise kernel", ("depthwise_conv2d_kernel",)),
                  ("convolutions", ("conv", "xmma", "gemm", "cutlass", "sm90",
                                    "dgrad", "wgrad", "cudnn")),
@@ -912,8 +1159,9 @@ def main():
     from convnet_tpu_torch.ops.kernels import grouped_conv as gc
     from convnet_tpu_torch.ops.kernels import matmul_fused as mf
     from convnet_tpu_torch.ops.kernels import max_pool as mp
+    from convnet_tpu_torch.ops.kernels import mbconv as mb
     from convnet_tpu_torch.serve import Predictor
-    k = types.SimpleNamespace(mf=mf, mp=mp, gc=gc, dc=dc)
+    k = types.SimpleNamespace(mf=mf, mp=mp, gc=gc, dc=dc, mb=mb)
     # full float32 in matmuls and convs: the float32 checks compare exactly
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -963,6 +1211,12 @@ def main():
     log("grouped_conv2d agrees with its plain version at every shape")
     depthwise = check_depthwise(torch)
     log("depthwise_conv2d agrees with its plain version at every shape")
+    mb_path = mbconv_shapes(torch, predictors["mobilenet_v2"], images)
+    if sum(mb_path.values()) != MODELS["mobilenet_v2"][2]["mbconv_full"]:
+        raise RuntimeError(f"mobilenet_v2: fused blocks per forward "
+                           f"{mb_path}, expected 13")
+    mbconv = check_mbconv(torch, mb_path)
+    log("the MBConv kernels agree with their plain versions at every shape")
     seconds["kernels"] = time.perf_counter() - t
 
     # -- 3. serve: the main path, counted, model by model
@@ -978,6 +1232,7 @@ def main():
     t = time.perf_counter()
     for tag in ("resnet50", "mobilenet_v1"):
         check_step_against_cpu(torch, tag)
+    check_step_against_cpu(torch, "mobilenet_v2", dropout=0.0)
     train_counts = launches()
     for tag in MODELS:
         train_counts = add_counts(train_counts, train(torch, card, k, tag))
@@ -1042,6 +1297,24 @@ def main():
                         res["max_abs_err"],
                         f"sum over the launches of one batch-{SERVE_BATCH} "
                         f"bf16 {model} forward", shapes=res["shapes"]))
+    for mode, batch, what in (("full", SERVE_BATCH, "forward"),
+                              ("stats", TRAIN_BATCH, "training step"),
+                              ("raw", TRAIN_BATCH, "training step")):
+        res = mbconv[mode]
+        rows.append(row(
+            f"mbconv_{mode}", "mbconv.cu",
+            {"full": "mbconv.py:180", "stats": "mbconv.py:310",
+             "raw": "mbconv.py:246"}[mode],
+            res["ms"], res["kernel_ms"], res["plain_ms"], res["bound_ms"],
+            res["bound_by"], res["library_ms"],
+            "the unfused chain: addmm, clamp, F.conv2d(groups=C) on the "
+            "channels-last view, scale and shift, clamp, then "
+            + ("addmm (+ x)" if mode == "full" else
+               "the sums" if mode == "stats" else "matmul and the sums"),
+            res["max_abs_err"],
+            f"sum over the 13 launches of one batch-{batch} bf16 "
+            f"MobileNet-V2 {what}", shapes=res["shapes"],
+            cuda_core_floor_ms=res["cuda_core_floor_ms"]))
     emit({"kernels": rows})
     faulthandler.cancel_dump_traceback_later()
     print(card, flush=True)

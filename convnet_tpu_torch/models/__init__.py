@@ -1,8 +1,9 @@
 """Model registry — ``models.build(name, **config)`` (counterpart of
 convnet_tpu/models/__init__.py). Ported so far: the ImageNet ResNets,
-ResNeXt, the zero-init-residual ResNet and MobileNet v1."""
+ResNeXt, the zero-init-residual ResNet, MobileNet v1 and MobileNet-V2."""
 
 from convnet_tpu_torch.models.mobilenet import MobileNet, mobilenet
+from convnet_tpu_torch.models.mobilenet_v2 import MobileNetV2, mobilenet_v2
 from convnet_tpu_torch.models.resnet import ResNet_imagenet, resnet, resnext
 from convnet_tpu_torch.models.resnet_zi import resnet_zi
 
@@ -11,6 +12,7 @@ REGISTRY = {
     "resnext": resnext,
     "resnet_zi": resnet_zi,
     "mobilenet": mobilenet,
+    "mobilenet_v2": mobilenet_v2,
 }
 
 
@@ -23,5 +25,5 @@ def build(name, **config):
     return factory(**config)
 
 
-__all__ = ["REGISTRY", "MobileNet", "ResNet_imagenet", "build", "mobilenet",
-           "resnet", "resnet_zi", "resnext"]
+__all__ = ["REGISTRY", "MobileNet", "MobileNetV2", "ResNet_imagenet", "build",
+           "mobilenet", "mobilenet_v2", "resnet", "resnet_zi", "resnext"]

@@ -39,16 +39,23 @@ def weight_decay_config(value=1e-4):
     return {"name": "WeightDecay", "value": value}
 
 
+_ACTS = {"relu": ops.relu, "relu6": ops.relu6, "none": lambda x: x}
+
+
 class ConvBN(nn.Module):
-    """conv → BN (→ ReLU): the fusable unit."""
+    """conv → BN (→ activation): the fusable unit. ``act`` is ``"relu"``,
+    ``"relu6"`` or ``"none"``; ``relu=False`` means ``"none"`` whatever
+    ``act`` says (the JAX package's rule)."""
 
     def __init__(self, in_ch, out_ch, kernel, stride=1, padding=0, groups=1,
-                 relu=True, zero_init_gamma=False):
+                 relu=True, zero_init_gamma=False, act="relu"):
         super().__init__()
+        if act not in _ACTS:
+            raise ValueError(f"act={act!r}: choose from {sorted(_ACTS)}")
         self.conv = Conv2d(in_ch, out_ch, kernel, stride, padding,
                            groups=groups)
         self.bn = BatchNorm2d(out_ch, zero_init=zero_init_gamma)
-        self.act = "relu" if relu else "none"
+        self.act = act if relu else "none"
 
     def uses_kernel(self):
         """The JAX package's fusion predicate: eval, 1x1, stride 1, groups 1."""
@@ -62,8 +69,7 @@ class ConvBN(nn.Module):
             scale, shift = self.bn.folded()
             return conv1x1_bn_act(x, self.conv.weight, scale, shift,
                                   act=self.act)
-        x = self.bn(self.conv(x))
-        return ops.relu(x) if self.act == "relu" else x
+        return _ACTS[self.act](self.bn(self.conv(x)))
 
 
 class BasicBlock(nn.Module):

@@ -21,6 +21,7 @@ from torch import nn
 from convnet_tpu_torch import ops
 from convnet_tpu_torch.core import initializers as init
 from convnet_tpu_torch.ops.kernels import depthwise_conv, grouped_conv
+from convnet_tpu_torch.ops.norm import running_update
 
 
 def _pair(v):
@@ -109,6 +110,17 @@ class BatchNorm2d(nn.Module):
         shift = self.bias.float() - self.running_mean * scale
         return scale, shift
 
+    @torch.no_grad()
+    def track(self, mean, var, n):
+        """Updates the running statistics from a batch's mean and biased
+        variance over ``n`` values a channel, as :meth:`forward` does in
+        training (for a fused block that computes the moments itself)."""
+        new_mean, new_var = running_update(self.running_mean,
+                                           self.running_var, mean, var, n,
+                                           self.momentum)
+        self.running_mean.copy_(new_mean)
+        self.running_var.copy_(new_var)
+
     def forward(self, x):
         if self.training:
             y, mean, var = ops.batch_norm_train(
@@ -146,6 +158,37 @@ class Linear(nn.Module):
 class ReLU(nn.Module):
     def forward(self, x):
         return ops.relu(x)
+
+
+class ReLU6(nn.Module):
+    def forward(self, x):
+        return ops.relu6(x)
+
+
+class Dropout(nn.Module):
+    """In training, keeps each element with probability 1 − rate and scales
+    it by 1/(1 − rate) (the JAX package's ``Dropout``); the identity in eval
+    or at rate 0. The mask is drawn from ``generator``, a ``torch.Generator``
+    on the activations' device (``Trainer`` seeds one from its ``seed``),
+    never from the global generator."""
+
+    def __init__(self, rate=0.5):
+        super().__init__()
+        self.rate = rate
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if (self.generator is None
+                or self.generator.device.type != x.device.type):
+            raise RuntimeError(f"Dropout in training needs a torch.Generator "
+                               f"on {x.device} in .generator (Trainer sets "
+                               f"one from its seed)")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class MaxPool2d(nn.Module):

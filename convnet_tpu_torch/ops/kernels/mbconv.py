@@ -1,0 +1,508 @@
+"""The fused inverted residual (MBConv): MobileNet-V2's stride-1 block.
+
+Counterpart of ``convnet_tpu/ops/pallas/mbconv.py``. Its three Pallas
+kernels become the three modes of one CUDA template (``csrc/mbconv.cu``):
+
+- :func:`mbconv_full` (``_build_full``): the whole block with folded BN,
+  y = act_out((u2 @ wp) * s3 + t3 [+ x]);
+- :func:`mbconv_stats` (``_build_stats``): the per-channel (Σ, Σ²) of the
+  depthwise output d;
+- :func:`mbconv_raw` (``_build_raw``): h3 = u2 @ wp and its (Σ, Σ²),
+  taken from the float32 values before h3 is rounded to x's type;
+
+with u1 = act_mid(x @ we * s1 + t1) zero outside the image (the mask comes
+after the BN and the activation; without an expand stage u1 = x), d the
+9-tap depthwise of u1 in float32, and u2 = act_mid(d * s2 + t2) rounded to
+x's type. we and wp are cast to x's type, the depthwise weight ``wd9``
+(9, Ch) and the scales and shifts are float32, as in the reference.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
+it runs the plain version below, which is also the kernel's oracle in the
+on-card checks. ``full_launches``, ``stats_launches`` and ``raw_launches``
+count kernel launches only.
+
+Above the kernels, as in the reference: :func:`mbconv_infer`,
+:func:`mbconv_train_forward` (the expand-BN moments from the Gram trick, the
+stats pass, the raw pass, and the last BN in plain ops) and
+:func:`mbconv_train`, differentiable, whose backward recomputes the unfused
+composition :func:`_unfused` and differentiates it (``mbconv.py:468-528``);
+its depthwise conv runs the port's ``depthwise_conv2d``, so on the card the
+recompute and its stride-1 dx launch that kernel (two launches a block).
+Only stride 1, a 3x3 depthwise and dilation 1 are fused (:func:`supported`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from convnet_tpu_torch import ops
+from convnet_tpu_torch.ops.kernels import _build
+from convnet_tpu_torch.ops.kernels.depthwise_conv import depthwise_conv2d
+
+ACTS = {"none": 0, "relu": 1, "relu6": 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's limits: a tile of at most MAX_Q output and MAX_P haloed
+# pixels; each thread keeps 8 pixels x 10 groups of 32 output channels
+MAX_Q, MAX_P, MAX_COUT = 64, 104, 320
+CHUNK = 32
+SMEM_LIMIT = 232448      # bytes of shared memory a block may have (H100)
+
+full_launches = 0   # Full kernel launches since the last reset (set to 0)
+stats_launches = 0  # Stats kernel launches since the last reset
+raw_launches = 0    # Raw kernel launches since the last reset
+
+
+def supported(stride, kernel, dilation=1):
+    """The reference's rule (``mbconv.py:549``): stride 1, 3x3, dilation 1."""
+    def pair(v):
+        return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+    return (pair(stride) == (1, 1) and pair(kernel) == (3, 3)
+            and pair(dilation) == (1, 1))
+
+
+def _act(v, kind):
+    if kind == "relu":
+        return torch.clamp_min(v, 0.0)
+    if kind == "relu6":
+        return torch.clamp(v, 0.0, 6.0)
+    return v
+
+
+# ----------------------------------------------------------- plain versions
+
+def _depthwise_out(x, we, s1, t1, wd9, act_mid):
+    """d, the float32 depthwise output: u1 is zero-padded after the BN and
+    the activation, and the 9 taps are added di outer, dj inner."""
+    _, h, w, cin = x.shape
+    if we is None:
+        u1 = x.float()
+    else:
+        e = x.reshape(-1, cin).float() @ we.to(x.dtype).float()
+        u1 = _act(e.view(*x.shape[:3], -1) * s1 + t1, act_mid)
+    u1 = F.pad(u1, (0, 0, 1, 1, 1, 1))
+    d = None
+    for di in range(3):
+        for dj in range(3):
+            term = u1[:, di:di + h, dj:dj + w, :] * wd9[3 * di + dj]
+            d = term if d is None else d + term
+    return d
+
+
+def _project(x, we, s1, t1, wd9, s2, t2, wp, act_mid):
+    """u2 @ wp in float32, u2 rounded to x's type first."""
+    d = _depthwise_out(x, we, s1, t1, wd9, act_mid)
+    u2 = _act(d * s2 + t2, act_mid).to(x.dtype)
+    ch = u2.shape[-1]
+    return (u2.reshape(-1, ch).float() @ wp.to(x.dtype).float()).view(
+        *x.shape[:3], -1)
+
+
+def _sums(v):
+    v = v.reshape(-1, v.shape[-1])
+    return torch.stack([v.sum(0), (v * v).sum(0)])
+
+
+def mbconv_full_plain(x, we, s1, t1, wd9, s2, t2, wp, s3, t3, *, residual,
+                      act_mid="relu6", act_out="none"):
+    y = _project(x, we, s1, t1, wd9, s2, t2, wp, act_mid) * s3 + t3
+    if residual:
+        y = y + x.float()
+    return _act(y, act_out).to(x.dtype)
+
+
+def mbconv_stats_plain(x, we, s1, t1, wd9, *, act_mid="relu6"):
+    return _sums(_depthwise_out(x, we, s1, t1, wd9, act_mid))
+
+
+def mbconv_raw_plain(x, we, s1, t1, wd9, s2, t2, wp, *, act_mid="relu6"):
+    h3 = _project(x, we, s1, t1, wd9, s2, t2, wp, act_mid)
+    return h3.to(x.dtype), _sums(h3)
+
+
+# ------------------------------------------------------------------ kernels
+
+def tile(h, w):
+    """The kernel's output tile (TH, TW) for an H x W image: at most MAX_Q
+    pixels and MAX_P haloed ones, the fewest haloed plus output pixels over
+    the whole image (the expand runs on the halo, the rest on the tile)."""
+    best = None
+    for tw in range(1, min(w, 16) + 1):
+        for th in range(1, min(h, MAX_Q // tw) + 1):
+            if (th + 2) * (tw + 2) > MAX_P:
+                break
+            tiles = -(-h // th) * -(-w // tw)
+            cost = (tiles * ((th + 2) * (tw + 2) + th * tw), -th * tw)
+            if best is None or cost < best[0]:
+                best = (cost, (th, tw))
+    return best[1]
+
+
+def smem_bytes(th, tw, cin, cout, expand, with_project):
+    """The kernel's shared memory at this tile (``smem_bytes`` in the .cu)."""
+    p = (th + 2) * (tw + 2)
+    cin_pad = -(-cin // 4) * 4
+    floats = p * cin_pad + p * CHUNK + MAX_Q * CHUNK
+    if expand:
+        floats += cin_pad * CHUNK
+    if with_project:
+        floats += CHUNK * 32 * -(-cout // 32)
+    return floats * 4
+
+
+def _check(x, we, s1, t1, wd9, s2=None, t2=None, wp=None, s3=None, t3=None,
+           *, residual=False, act_mid="relu6", act_out="none"):
+    if x.dim() != 4:
+        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
+    for name, kind in (("act_mid", act_mid), ("act_out", act_out)):
+        if kind not in ACTS:
+            raise ValueError(f"{name}={kind!r}: choose from {sorted(ACTS)}")
+    cin = x.shape[-1]
+    if wd9.dim() != 2 or wd9.shape[0] != 9:
+        raise ValueError(f"wd9 must be (9, Ch), got {tuple(wd9.shape)}")
+    ch = wd9.shape[1]
+    if we is None:
+        if cin != ch:
+            raise ValueError(f"without an expand stage Cin ({cin}) must equal "
+                             f"the hidden width ({ch})")
+    elif tuple(we.shape) != (cin, ch):
+        raise ValueError(f"we must be (Cin, Ch) = {(cin, ch)}, got "
+                         f"{tuple(we.shape)}")
+    vecs = [("s2", s2, ch), ("t2", t2, ch)]
+    if we is not None:
+        vecs += [("s1", s1, ch), ("t1", t1, ch)]
+    if wp is not None:
+        if wp.dim() != 2 or wp.shape[0] != ch:
+            raise ValueError(f"wp must be (Ch, Cout) with Ch = {ch}, got "
+                             f"{tuple(wp.shape)}")
+        cout = wp.shape[1]
+        vecs += [("s3", s3, cout), ("t3", t3, cout)]
+        if residual and cout != cin:
+            raise ValueError(f"a residual block needs Cin == Cout, got "
+                             f"{cin} and {cout}")
+    for name, v, n in vecs:
+        if v is not None and v.shape != (n,):
+            raise ValueError(f"{name} must have shape ({n},), got "
+                             f"{tuple(v.shape)}")
+
+
+@functools.cache
+def _kernels():
+    lib = _build.library("mbconv")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    full = lib.ctt_mbconv_full
+    full.argtypes = [p] * 11 + [i] * 12 + [p]
+    stats = lib.ctt_mbconv_stats
+    stats.argtypes = [p] * 7 + [i] * 9 + [p]
+    raw = lib.ctt_mbconv_raw
+    raw.argtypes = [p] * 11 + [i] * 10 + [p]
+    for fn in (full, stats, raw):
+        fn.restype = ctypes.c_int
+    return {"full": full, "stats": stats, "raw": raw}
+
+
+def kernel_args(x, we, s1, t1, wd9, s2=None, t2=None, wp=None, s3=None,
+                t3=None, *, mode):
+    """Checks that the kernel can take these tensors and returns them in its
+    layouts: x, we and wp contiguous in x's type, the rest float32. Also the
+    tile (TH, TW). Raises on a device without a kernel and on a shape beyond
+    the kernel's limits, naming it."""
+    if not x.is_cuda:
+        raise ValueError(f"no kernel for device {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"no kernel for {x.dtype}: float32 or bfloat16 only")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"x has {x.numel()} elements: the kernel's 32-bit "
+                         f"pixel offsets need fewer than 2^31")
+    b, h, w, cin = x.shape
+    cout = wp.shape[1] if wp is not None else 0
+    if wp is not None and cout > MAX_COUT:
+        raise ValueError(f"Cout = {cout}: the kernel takes at most "
+                         f"{MAX_COUT} output channels")
+    th, tw = tile(h, w)
+    need = smem_bytes(th, tw, cin, cout, we is not None, mode != "stats")
+    if need > SMEM_LIMIT:
+        raise ValueError(f"Cin = {cin}, Cout = {cout}: the kernel needs {need} "
+                         f"bytes of shared memory, above {SMEM_LIMIT}")
+    tensors = [x.contiguous(), None if we is None else
+               we.to(x.dtype).contiguous()]
+    tensors += [None if v is None else v.float().contiguous()
+                for v in (s1, t1, wd9, s2, t2)]
+    tensors += [None if wp is None else wp.to(x.dtype).contiguous()]
+    tensors += [None if v is None else v.float().contiguous()
+                for v in (s3, t3)]
+    for v in tensors:
+        if v is not None and v.device != x.device:
+            raise ValueError(f"an argument is on {v.device}, x on {x.device}")
+    return tensors, (th, tw)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def call(mode, tensors, tile_hw, outs, *, residual=False, act_mid="relu6",
+         act_out="none"):
+    """One launch on the current stream of x's device, uncounted. ``tensors``
+    and ``tile_hw`` from :func:`kernel_args`; ``outs``: (y,) for Full,
+    (partials, sums) for Stats, (h3, partials, sums) for Raw."""
+    x, we, s1, t1, wd9, s2, t2, wp, s3, t3 = tensors
+    b, h, w, cin = x.shape
+    ch = wd9.shape[1]
+    th, tw = tile_hw
+    fn = _kernels()[mode]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        head = [_ptr(v) for v in (x, we, s1, t1, wd9)]
+        dt = _DTYPES[x.dtype]
+        if mode == "full":
+            err = fn(*head, _ptr(s2), _ptr(t2), _ptr(wp), _ptr(s3), _ptr(t3),
+                     outs[0].data_ptr(), b, h, w, cin, ch, wp.shape[1], th,
+                     tw, int(residual), ACTS[act_mid], ACTS[act_out], dt,
+                     stream)
+        elif mode == "stats":
+            err = fn(*head, outs[0].data_ptr(), outs[1].data_ptr(), b, h, w,
+                     cin, ch, th, tw, ACTS[act_mid], dt, stream)
+        else:
+            err = fn(*head, _ptr(s2), _ptr(t2), _ptr(wp),
+                     *(o.data_ptr() for o in outs), b, h, w, cin, ch,
+                     wp.shape[1], th, tw, ACTS[act_mid], dt, stream)
+    if err != 0:
+        raise RuntimeError(f"mbconv {mode} kernel launch failed: CUDA error "
+                           f"{err} (x {tuple(x.shape)}, Ch {ch}, tile "
+                           f"{tile_hw}, {x.dtype})")
+
+
+def outputs(mode, x, ch, cout):
+    """The kernel's output tensors for ``call``."""
+    b, h, w, _ = x.shape
+    th, tw = tile(h, w)
+    blocks = b * -(-h // th) * -(-w // tw)
+    c = ch if mode == "stats" else cout
+    sums = [torch.empty((blocks, 2, c), dtype=torch.float32, device=x.device),
+            torch.empty((2, c), dtype=torch.float32, device=x.device)]
+    if mode == "stats":
+        return sums
+    y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    return [y] + (sums if mode == "raw" else [])
+
+
+def _on_cpu(x):
+    if x.device.type == "cpu":
+        return True
+    if not x.is_cuda:
+        raise ValueError(f"no kernel for device {x.device}")
+    return False
+
+
+def mbconv_full(x, we, s1, t1, wd9, s2, t2, wp, s3, t3, *, residual,
+                act_mid="relu6", act_out="none"):
+    """The whole block with folded BN: x (B, H, W, Cin); we (Cin, Ch) or
+    None; wd9 (9, Ch); wp (Ch, Cout); s*, t* float32. y in x's type."""
+    global full_launches
+    _check(x, we, s1, t1, wd9, s2, t2, wp, s3, t3, residual=residual,
+           act_mid=act_mid, act_out=act_out)
+    if _on_cpu(x):
+        return mbconv_full_plain(x, we, s1, t1, wd9, s2, t2, wp, s3, t3,
+                                 residual=residual, act_mid=act_mid,
+                                 act_out=act_out)
+    tensors, tile_hw = kernel_args(x, we, s1, t1, wd9, s2, t2, wp, s3, t3,
+                                   mode="full")
+    outs = outputs("full", x, wd9.shape[1], wp.shape[1])
+    call("full", tensors, tile_hw, outs, residual=residual, act_mid=act_mid,
+         act_out=act_out)
+    full_launches += 1
+    return outs[0]
+
+
+def mbconv_stats(x, we, s1, t1, wd9, *, act_mid="relu6"):
+    """(2, Ch) float32: Σ and Σ² over every pixel of the depthwise output."""
+    global stats_launches
+    _check(x, we, s1, t1, wd9, act_mid=act_mid)
+    if _on_cpu(x):
+        return mbconv_stats_plain(x, we, s1, t1, wd9, act_mid=act_mid)
+    tensors, tile_hw = kernel_args(x, we, s1, t1, wd9, mode="stats")
+    outs = outputs("stats", x, wd9.shape[1], 0)
+    call("stats", tensors, tile_hw, outs, act_mid=act_mid)
+    stats_launches += 1
+    return outs[1]
+
+
+def mbconv_raw(x, we, s1, t1, wd9, s2, t2, wp, *, act_mid="relu6"):
+    """(h3 in x's type, (2, Cout) float32 Σ and Σ² of h3 before rounding)."""
+    global raw_launches
+    _check(x, we, s1, t1, wd9, s2, t2, wp, act_mid=act_mid)
+    if _on_cpu(x):
+        return mbconv_raw_plain(x, we, s1, t1, wd9, s2, t2, wp,
+                                act_mid=act_mid)
+    tensors, tile_hw = kernel_args(x, we, s1, t1, wd9, s2, t2, wp,
+                                   mode="raw")
+    outs = outputs("raw", x, wd9.shape[1], wp.shape[1])
+    call("raw", tensors, tile_hw, outs, act_mid=act_mid)
+    raw_launches += 1
+    return outs[0], outs[2]
+
+
+# ------------------------------------------------ the reference's wrappers
+
+def _wd9(wd):
+    """(3, 3, 1, Ch) HWIO or (9, Ch) → (9, Ch) float32."""
+    return wd.reshape(9, wd.shape[-1]).float()
+
+
+def mbconv_infer(x, we, s1, t1, wd, s2, t2, wpj, s3, t3, *, residual,
+                 act_mid="relu6", act_out="none"):
+    """Whole inverted-residual block with folded (inference) BN
+    (``mbconv.py:334``). x (B, H, W, Cin) NHWC; we (Cin, Ch) or None; wd
+    (3, 3, 1, Ch) or (9, Ch); wpj (Ch, Cout); s*/t* float32 per-channel
+    scale and shift. Stride-1 3x3 depthwise only."""
+    ch = wd.shape[-1]
+    return mbconv_full(x, we, s1, t1, _wd9(wd), s2, t2,
+                       wpj.reshape(ch, -1), s3, t3, residual=residual,
+                       act_mid=act_mid, act_out=act_out)
+
+
+def _finalize(sums, n):
+    mean = sums[0] / n
+    var = torch.clamp_min(sums[1] / n - mean * mean, 0.0)
+    return mean, var
+
+
+def _fold(gamma, beta, mean, var, eps):
+    s = gamma.float() * torch.rsqrt(var + eps)
+    t = beta.float() - mean * s
+    return s, t
+
+
+def _gram_stats(x, we):
+    """Expand-BN batch moments without materializing h = x @ we:
+    Σh = (Σx) @ we and Σh² = diag(weᵀ (XᵀX) we). X is cast to float32
+    first: a bf16 product would round the Gram matrix to bf16."""
+    n = x.numel() // x.shape[-1]
+    xf = x.reshape(n, -1).float()
+    we32 = we.float()
+    sx = xf.sum(0)
+    gram = xf.t() @ xf
+    m = gram @ we32                      # (Cin, Ch)
+    ex2 = (we32 * m).sum(0) / n          # diag(weᵀ G we) / N
+    mean = (sx @ we32) / n
+    var = torch.clamp_min(ex2 - mean * mean, 0.0)
+    return mean, var
+
+
+def mbconv_train_forward(x, we, g1, b1, wd, g2, b2, wpj, g3, b3, *,
+                         eps=1e-5, residual=True, act_mid="relu6",
+                         act_out="none"):
+    """Training-mode fused forward (``mbconv.py:386``). Returns (out,
+    stats), stats = ((mean1, var1) or None without an expand stage,
+    (mean2, var2), (mean3, var3)): the biased batch moments of the three
+    BNs, for the running-statistics updates. Not differentiable: see
+    :func:`mbconv_train`."""
+    n = x.numel() // x.shape[-1]
+    ch = wd.shape[-1]
+    if we is not None:
+        mean1, var1 = _gram_stats(x, we)
+        s1, t1 = _fold(g1, b1, mean1, var1, eps)
+        stats1 = (mean1, var1)
+    else:
+        s1 = t1 = stats1 = None
+    wd9 = _wd9(wd)
+    mean2, var2 = _finalize(mbconv_stats(x, we, s1, t1, wd9,
+                                         act_mid=act_mid), n)
+    s2, t2 = _fold(g2, b2, mean2, var2, eps)
+    h3, sums3 = mbconv_raw(x, we, s1, t1, wd9, s2, t2, wpj.reshape(ch, -1),
+                           act_mid=act_mid)
+    mean3, var3 = _finalize(sums3, n)
+    s3, t3 = _fold(g3, b3, mean3, var3, eps)
+    y = h3.float() * s3 + t3
+    if residual:
+        y = y + x.float()
+    y = _act(y, act_out)
+    return y.to(x.dtype), (stats1, (mean2, var2), (mean3, var3))
+
+
+# ------------------------------------------- the unfused composition, VJP
+
+def _bn_train_apply(v, gamma, beta, eps):
+    v32 = v.float()
+    dims = tuple(range(v.dim() - 1))
+    mean = v32.mean(dim=dims)
+    ex2 = (v32 * v32).mean(dim=dims)
+    var = torch.clamp_min(ex2 - mean * mean, 0.0)
+    s = gamma.float() * torch.rsqrt(var + eps)
+    return (v32 - mean) * s + beta.float()
+
+
+def _grad_act(v, kind):
+    """The activations with the reference's gradients (``ops.relu6``)."""
+    if kind == "relu6":
+        return ops.relu6(v)
+    if kind == "relu":
+        return ops.relu(v)
+    return v
+
+
+def _unfused(x, we, g1, b1, wd, g2, b2, wpj, g3, b3, *, eps, residual,
+             act_mid, act_out):
+    """The block layer by layer with batch-statistics BN (``mbconv.py:468``),
+    the rounding points of the reference: each product in float32 from
+    operands in x's type, each BN in float32, the activations cast to x's
+    type. The depthwise conv runs ``depthwise_conv2d`` in float32 on the
+    x-typed values, which is the reference's ``preferred_element_type``."""
+    ch = wd.shape[-1]
+    v = x
+    if we is not None:
+        h1 = x.float() @ we.to(x.dtype).float()
+        v = _grad_act(_bn_train_apply(h1, g1, b1, eps), act_mid).to(x.dtype)
+    w_dw = wd.reshape(9, ch).t().reshape(ch, 1, 3, 3).to(x.dtype).float()
+    h2 = depthwise_conv2d(v.float(), w_dw, 1, 1)
+    u2 = _grad_act(_bn_train_apply(h2, g2, b2, eps), act_mid).to(x.dtype)
+    h3 = u2.float() @ wpj.reshape(ch, -1).to(x.dtype).float()
+    y = _bn_train_apply(h3, g3, b3, eps)
+    if residual:
+        y = y + x.float()
+    return _grad_act(y, act_out).to(x.dtype)
+
+
+class _MBConvTrain(torch.autograd.Function):
+    """Forward: the kernels. Backward: the VJP of :func:`_unfused`, which
+    recomputes the block from its inputs (only they are saved)."""
+
+    @staticmethod
+    def forward(ctx, conf, stats_out, x, we, g1, b1, wd, g2, b2, wpj, g3, b3):
+        args = (x, we, g1, b1, wd, g2, b2, wpj, g3, b3)
+        ctx.save_for_backward(*args)
+        ctx.conf = conf
+        y, stats = mbconv_train_forward(*args, **conf)
+        stats_out.extend(stats)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            args = [None if t is None else t.detach().requires_grad_(n)
+                    for t, n in zip(saved, needs)]
+            y = _unfused(*args, **ctx.conf)
+            wanted = [a for a, n in zip(args, needs) if n]
+            grads = iter(torch.autograd.grad(y, wanted, dy.to(y.dtype)))
+        return (None, None, *(next(grads) if n else None for n in needs))
+
+
+def mbconv_train(x, we, g1, b1, wd, g2, b2, wpj, g3, b3, *, eps=1e-5,
+                 residual=True, act_mid="relu6", act_out="none"):
+    """Differentiable fused training block (``mbconv.py:531``): the forward
+    runs the kernels, the backward recomputes through :func:`_unfused`
+    (exact gradients of the block's definition). Without an expand stage
+    pass ``we = g1 = b1 = None``. Returns (out, stats) as
+    :func:`mbconv_train_forward`; the statistics carry no gradient."""
+    stats = []
+    conf = dict(eps=float(eps), residual=bool(residual), act_mid=act_mid,
+                act_out=act_out)
+    y = _MBConvTrain.apply(conf, stats, x, we, g1, b1, wd, g2, b2, wpj, g3,
+                           b3)
+    return y, tuple(stats)

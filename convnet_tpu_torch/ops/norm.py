@@ -43,9 +43,17 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, *,
         y = y + bias.float()
     y = y.to(x.dtype)
 
-    n = x.numel() // x.shape[-1]
+    new_mean, new_var = running_update(running_mean, running_var, mean, var,
+                                       x.numel() // x.shape[-1], momentum)
+    return y, new_mean, new_var
+
+
+def running_update(running_mean, running_var, mean, var, n, momentum):
+    """The new running statistics from a batch's mean and biased variance
+    over ``n`` values a channel: torch momentum, and the unbiased
+    n/(n − 1) variance. Carries no gradient."""
     correction = n / max(n - 1, 1)
     new_mean = (1 - momentum) * running_mean + momentum * mean.detach()
     new_var = ((1 - momentum) * running_var
                + momentum * (var.detach() * correction))
-    return y, new_mean, new_var
+    return new_mean, new_var

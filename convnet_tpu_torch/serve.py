@@ -3,7 +3,8 @@
 ``Predictor``: weights (seeded init, or the JAX package's pytrees) →
 BN folded into the convs → one batched eval forward in the compute dtype,
 with requests padded to a fixed batch. On the card every 1x1 stride-1
-``ConvBN`` of a ResNet runs the hand-written fused kernel.
+``ConvBN`` runs the hand-written fused 1x1 kernel, and each stride-1
+inverted residual of MobileNet-V2 the fused MBConv kernel.
 
 Not ported yet: checkpoint loading (JAX or torch), ``quantize``, ``export``,
 multi-device serving, ``predict_jpeg`` and the HTTP server.

@@ -6,7 +6,9 @@ statistics. One step casts the batch to the compute dtype (each layer casts
 its parameters at use, so there is no ``torch.autocast``, whose casting rules
 differ from the JAX policy), runs the forward in training mode, scales the
 cross-entropy by ``loss_scale``, lets autograd compute the gradients, unscales
-them, clips them by their global norm and applies the regime's SGD step.
+them, clips them by their global norm and applies the regime's optimizer
+step (SGD, NesterovSGD or RMSprop). Dropout draws its masks from one
+``torch.Generator`` on the model's device, seeded from ``seed``.
 
 ``grad_clip`` and ``loss_scale`` come from the optimizer regime where it sets
 them, else from ``TrainerConfig``. (The JAX trainer reads them from the
@@ -31,6 +33,7 @@ import torch
 from convnet_tpu_torch.core.device import resolve_device
 from convnet_tpu_torch.core.dtypes import get_policy
 from convnet_tpu_torch.core.module import init_parameters
+from convnet_tpu_torch.nn import Dropout
 from convnet_tpu_torch.regimes.optim import (OptimRegime, clip_by_global_norm,
                                              optimizer_step)
 from convnet_tpu_torch.train.losses import CrossEntropyLoss
@@ -55,9 +58,15 @@ class Trainer:
                  config: Optional[TrainerConfig] = None, device=None,
                  seed: int = 0):
         """``device``: where the model trains; ``None`` is the CUDA card.
-        ``seed`` seeds the weights :meth:`initialize` draws."""
+        ``seed`` seeds the weights :meth:`initialize` draws and the
+        generator of the model's ``Dropout`` layers."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        self.dropout_generator = torch.Generator(
+            device=self.device).manual_seed(seed)
+        for m in self.model.modules():
+            if isinstance(m, Dropout):
+                m.generator = self.dropout_generator
         self.optim = optim_regime
         self.num_classes = num_classes
         self.cfg = config or TrainerConfig()

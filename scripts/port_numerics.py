@@ -28,13 +28,28 @@ and of the float32 card-against-CPU check in chip_smoke.py:
   mobilenet     MobileNet v1 at width 0.25, 32x32, batch 2, 4 and 8: one
                 float32 step's loss, the port's float32 against its float64,
                 and the port's against the JAX trainer's
+  mobilenet_v2  the narrow MobileNet-V2 of tests/test_torch_port_mobilenet_v2
+                (width 0.25, dropout 0, RMSprop) at 64x64 with batch 4, 8
+                and 16: one float32 step, the port's against its float64 step
+                and against the JAX trainer's: loss, updates in norm (all;
+                worst tensor, each tensor's error over its update's norm plus
+                1e-4 of all updates' norm, since some BN shifts feed a BN
+                and have a zero gradient), BN statistics
+  mobilenet_v2_float64
+                the same net's loss gradient at batch 8, the JAX model under
+                a float64 policy (64-bit JAX; and once more with its
+                BatchNorm, which casts to float32 whatever the policy, in
+                float64 too) against the port in float64, and each against
+                its float32 run: where the two packages part when rounding
+                is taken away (run this part alone: it turns on JAX's
+                64-bit mode for the rest of the process)
 
 Run from the repository root (minutes; the float64 and oscillation parts
 take the most):
 
     JAX_PLATFORMS=cpu PYTHONPATH=.:tests python scripts/port_numerics.py \
         [sensitivity jax bf16_step bf16 float64 oscillation resnext
-         mobilenet]
+         mobilenet mobilenet_v2 mobilenet_v2_float64]
 """
 
 import os
@@ -281,12 +296,16 @@ def _port_update(name, config, params, state, x, y, double):
                   for k, v in model.named_parameters()}
 
 
-def _update_errs(got, ref):
+def _update_errs(got, ref, floor=0.0):
     """(all updates in norm, worst tensor in norm, worst element over its
-    tensor's largest update) of ``got`` against ``ref`` (name → array)."""
-    flat = norm_err(np.concatenate([np.ravel(got[k]) for k in ref]),
-                    np.concatenate([np.ravel(ref[k]) for k in ref]))
-    tensor = max(norm_err(np.asarray(got[k]), np.asarray(ref[k]))
+    tensor's largest update) of ``got`` against ``ref`` (name → array). A
+    tensor's error is over its update's norm plus ``floor`` times the norm
+    of all updates."""
+    all_ref = np.concatenate([np.ravel(ref[k]) for k in ref])
+    flat = norm_err(np.concatenate([np.ravel(got[k]) for k in ref]), all_ref)
+    scale = floor * float(np.linalg.norm(all_ref))
+    tensor = max(float(np.linalg.norm(np.asarray(got[k]) - np.asarray(ref[k]))
+                       / (np.linalg.norm(np.asarray(ref[k])) + scale))
                  for k in ref)
     elem = max(float(np.abs(np.asarray(got[k]) - np.asarray(ref[k])).max()
                      / np.abs(np.asarray(ref[k])).max()) for k in ref)
@@ -352,9 +371,117 @@ def mobilenet():
               f"{abs(l32 - steps[0][1]) / steps[0][1]:.3g}")
 
 
+def mobilenet_v2():
+    import test_torch_port_mobilenet_v2 as V
+    params, state = V.jax_init(seed=2)
+    for batch in (4, 8, 16):
+        x, y = V.batch(batch)
+        l32, u32 = _port_update("mobilenet_v2", V.CONFIG, params, state, x, y,
+                                False)
+        l64, u64 = _port_update("mobilenet_v2", V.CONFIG, params, state, x, y,
+                                True)
+        errs = _update_errs({k: v.numpy() for k, v in u32.items()},
+                            {k: v.numpy() for k, v in u64.items()}, 1e-4)
+        print(f"batch {batch}: port float32 step against float64: loss "
+              f"{abs(l32 - l64) / l64:.3g}, updates in norm {errs[0]:.3g}, "
+              f"worst tensor {errs[1]:.3g}")
+        j_loss, j_p, j_s = V.jax_step(params, state, x, y)
+        tr = V.port_trainer(params, state)
+        loss = float(tr.train_step(x, y)["loss"])
+        p, s = to_jax_params(tr.model.state_dict())
+        p0 = dict(T._leaves(params))
+        errs = _update_errs({k: v - p0[k] for k, v in T._leaves(p)},
+                            {k: v - p0[k] for k, v in T._leaves(j_p)}, 1e-4)
+        rs, gs = dict(T._leaves(j_s)), dict(T._leaves(s))
+        stats = max(float((np.abs(gs[k] - rs[k])
+                           / (1 + np.abs(rs[k]))).max()) for k in rs)
+        print(f"batch {batch}: port against JAX: loss "
+              f"{abs(loss - j_loss) / j_loss:.3g}, updates in norm "
+              f"{errs[0]:.3g}, worst tensor {errs[1]:.3g}, BN statistics "
+              f"{stats:.3g}")
+
+
+def mobilenet_v2_float64():
+    import test_torch_port_mobilenet_v2 as V
+    from convnet_tpu.core.dtypes import Policy
+    from convnet_tpu.core.module import Context
+    from convnet_tpu_torch.utils.from_jax import from_jax_params
+    jax.config.update("jax_enable_x64", True)
+    params, state = V.jax_init(seed=2)
+    x, y = V.batch(8)
+    model = jax_models.build("mobilenet_v2", **V.CONFIG)
+
+    def jax_grads(dt):
+        policy = Policy(param_dtype=dt, compute_dtype=dt, stat_dtype=dt)
+        cast = lambda t: jax.tree_util.tree_map(  # noqa: E731
+            lambda a: jnp.asarray(a, dt), t)
+        st = cast(state)
+
+        def loss(p):
+            out, _ = model(p, st, jnp.asarray(x, dt),
+                           Context(train=True, rng=jax.random.PRNGKey(0),
+                                   policy=policy))
+            return -jnp.mean(jax.nn.log_softmax(out)[jnp.arange(len(y)), y])
+
+        g = jax.grad(loss)(cast(params))
+        return from_jax_params(jax.tree_util.tree_map(
+            lambda a: np.asarray(a, np.float64), g))
+
+    def port_grads(double):
+        saved_float = torch.Tensor.float
+        try:
+            if double:
+                torch.Tensor.float = (lambda t: t if t.dtype == torch.float64
+                                      else saved_float(t))
+            m = models.build("mobilenet_v2", **V.CONFIG)
+            m.load_state_dict(from_jax_params(params, state))
+            m.train()
+            xt = torch.from_numpy(x)
+            if double:
+                m.double()
+                xt = xt.double()
+            torch.nn.functional.cross_entropy(
+                m(xt), torch.from_numpy(y).long()).backward()
+        finally:
+            torch.Tensor.float = saved_float
+        return {k: p.grad.double().numpy() for k, p in m.named_parameters()}
+
+    j32, j64 = jax_grads(jnp.float32), jax_grads(jnp.float64)
+    p32, p64 = port_grads(False), port_grads(True)
+    # the JAX BatchNorm casts to float32 whatever the policy: once more with
+    # its float32 read as float64 (this process only; no file changes)
+    import convnet_tpu.ops.norm as jax_norm
+
+    class Float64Numpy:
+        float32 = jnp.float64
+
+        def __getattr__(self, name):
+            return getattr(jnp, name)
+
+    jax_norm.jnp = Float64Numpy()
+    try:
+        j64bn = jax_grads(jnp.float64)
+    finally:
+        jax_norm.jnp = jnp
+
+    def flat(g):
+        return np.concatenate([np.ravel(g[k]) for k in sorted(g)])
+
+    for name, a, b in (("JAX float32 against JAX float64 policy", j32, j64),
+                       ("port float32 against port float64", p32, p64),
+                       ("port float64 against JAX float64 policy", p64, j64),
+                       ("port float64 against JAX float64 policy and "
+                        "float64 BatchNorm", p64, j64bn),
+                       ("port float32 against JAX float32", p32, j32)):
+        print(f"batch 8 gradients, {name}: {norm_err(flat(a), flat(b)):.3g}"
+              f" in norm")
+
+
 PARTS = {"sensitivity": sensitivity, "jax": jax_steps, "bf16_step": bf16_step,
          "bf16": bf16_blocks, "float64": float64, "oscillation": oscillation,
-         "resnext": resnext, "mobilenet": mobilenet}
+         "resnext": resnext, "mobilenet": mobilenet,
+         "mobilenet_v2": mobilenet_v2,
+         "mobilenet_v2_float64": mobilenet_v2_float64}
 
 if __name__ == "__main__":
     torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
