@@ -23,22 +23,28 @@ ResNet-50, ResNeXt-50 32x4d, MobileNet v1 and MobileNet-V2.
    Stats and Raw at 128; bf16 and float32), at ragged shapes, and for the
    convs' stride-1 input gradients, which run the same kernels; the fused
    1x1 kernel also at M above 2^23 rows; the Stats and Raw sums of two runs
-   must be bit-equal. Kernel, plain version and the nearest library call
-   (for MBConv the unfused chain of library calls) are timed with CUDA
+   must be bit-equal. Each fused 1x1 and grouped record names the kernel
+   its C library picked (``variant``) and fails unless it is the one the
+   shape rule names: every bf16 shape the grouped route admits runs on the
+   tensor cores, every bf16 fused 1x1 shape with K and N multiples of 8 on
+   the TMA + wgmma kernel. Kernel, plain version and the nearest library
+   call (for MBConv the unfused chain of library calls) are timed with CUDA
    events, and the kernel alone (its launches replayed from a CUDA graph)
    with CUDA events too.
 3. serve: each model answers requests of 64, 17 and 1 uint8 images. The
    launch counts are set to 0 just before and read just after; each kernel
    must have launched its share. The logits must be finite, unchanged by
    the padding rows, and agree with the port's plain float32 forward on the
-   CPU. Then the card's serving throughput and batch-1 latency are timed.
+   CPU. Then the card's serving throughput and batch-1 latency are timed,
+   and the CUDA kernels of one batch-1 forward are counted (torch.profiler),
+   on its first call and on a later one.
 4. train: each model in the port's ``Trainer`` with its "normal" regime
    (SGD; RMSprop for MobileNet-V2). ResNet-50, MobileNet v1 and
    MobileNet-V2 (dropout 0): one float32 step on the card (TF32 off)
    against the same step on the CPU. bf16 steps at batch 128 on one random
    batch (20 for ResNet-50, 10 for the others), counted and timed; two more
    under torch.profiler, whose device time is broken down by kernel; and
-   one ``validate``, counted.
+   one ``validate``, counted, then timed twice.
 5. summary: one ``{"kernels": [...]}`` line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -63,9 +69,9 @@ HANG_LIMIT_S = 240
 SEED = 0
 SERVE_BATCH = 64
 REQUESTS = (64, 17, 1)            # images per request; each is one forward
-RAGGED = [(49, 72, 40, "relu6"),  # N edge masked; K % 8 == 0: cp.async path
-          (67, 60, 72, "relu"),   # K % 8 != 0: the scalar load path
-          (130, 24, 136, "none")]
+RAGGED = [(49, 72, 40, "relu6"),  # N edge masked; K % 8 == 0: the TMA kernel
+          (67, 60, 72, "relu"),   # K % 8 != 0: mma.sync with scalar loads
+          (130, 24, 136, "none")]  # K under one 64-wide slice: TMA zero-fills
 # H100 SXM (NVIDIA data sheet): HBM rate and dense peaks by operand type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "float32": 67e12}  # float32: no tensor core
@@ -285,6 +291,7 @@ def check_matmul_fused(torch, path):
 
     timed = {}
     max_err = 0.0
+    variants = {}
     failures = []
     for m, k, n, act, batch in cases:
         for dname, dtype in dtypes.items():
@@ -299,9 +306,11 @@ def check_matmul_fused(torch, path):
             diff = (out.float() - ref.float()).abs()
             err = diff.max().item()
             tol = KERNEL_TOL[dname]
-            ok = bool((diff <= tol * (1 + ref.float().abs())).all())
+            kind = mf.variant(x, w, out)
+            ok = bool((diff <= tol * (1 + ref.float().abs())).all()) \
+                and kind == fused_variant_expected(k, n, dname)
             rec = {"check": "conv1x1_bn_act", "dtype": dname, "batch": batch,
-                   "M": m, "K": k, "N": n, "act": act,
+                   "M": m, "K": k, "N": n, "act": act, "variant": kind,
                    "launches_per_forward": {
                        tag: shapes.get((m * SERVE_BATCH // (batch or 1), k,
                                         n, act), 0)
@@ -309,6 +318,7 @@ def check_matmul_fused(torch, path):
                    "max_abs_err": err, "tol": tol, "ok": ok}
             if batch is not None:
                 max_err = max(max_err, err)
+                variants.setdefault(dname, set()).add(kind)
             if batch == SERVE_BATCH and dname == "bf16":
                 w_lib = (w.t().float() * scale).to(dtype)
                 shift_lib = shift.to(dtype)
@@ -346,7 +356,16 @@ def check_matmul_fused(torch, path):
         total["bound_by"] = ("bytes" if total["bytes_bound_ms"] * 2
                              >= total["bound_ms"] else "operations")
         totals[tag] = total
-    return totals, max_err
+    return totals, max_err, {d: sorted(v) for d, v in variants.items()}
+
+
+def fused_variant_expected(k, n, dname):
+    """The fused 1x1's shape rule for a fresh, aligned x, w and out: bf16
+    with K and N multiples of 8 takes the TMA + wgmma kernel, other bf16
+    shapes the mma.sync kernel, float32 the FMA kernel."""
+    if dname == "float32":
+        return "fma_float32"
+    return "tma_wgmma" if k % 8 == 0 and n % 8 == 0 else "mma_sync"
 
 
 def check_large_m(torch, mf, gen):
@@ -366,11 +385,13 @@ def check_large_m(torch, mf, gen):
         torch.cuda.synchronize()
         diff = (out.float() - ref.float()).abs()
         tol = KERNEL_TOL[dname]
+        kind = mf.variant(x, w.t(), out)
         rec = {"check": "conv1x1_bn_act_large_m", "dtype": dname, "M": m,
-               "K": k, "N": n, "act": act, "x_bytes": x.numel()
-               * x.element_size(), "max_abs_err": diff.max().item(),
-               "tol": tol,
-               "ok": bool((diff <= tol * (1 + ref.float().abs())).all())}
+               "K": k, "N": n, "act": act, "variant": kind,
+               "x_bytes": x.numel() * x.element_size(),
+               "max_abs_err": diff.max().item(), "tol": tol,
+               "ok": bool((diff <= tol * (1 + ref.float().abs())).all())
+               and kind == fused_variant_expected(k, n, dname)}
         emit(rec)
         if not rec["ok"]:
             failures.append(rec)
@@ -394,8 +415,9 @@ def conv_bound(b, ho, wo, c, x_numel, w_numel, ops_per_out, dname):
 def check_conv(torch, name, module, cases, make_w, dx_weight, library):
     """Phase 2 for a conv kernel: at each case ((B, H, W, C), groups,
     stride, padding, launches per forward (0 off the path), timed) in bf16
-    and float32, the
-    kernel against its plain version, and at stride 1 the autograd input
+    and float32, the kernel against its plain version (and
+    ``module.variant``'s kernel that ran against the one its rule names),
+    and at stride 1 the autograd input
     gradient (the same kernel on dy) against the plain version on the
     prepared dy. Times the timed cases in bf16. Returns the summary: the
     per-forward sums of the timed cases and the largest error."""
@@ -404,7 +426,7 @@ def check_conv(torch, name, module, cases, make_w, dx_weight, library):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     out = {"ms": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "bound_ms": 0.0, "bytes_bound_ms": 0.0, "max_abs_err": 0.0,
-           "shapes": []}
+           "shapes": [], "variants": {}}
     failures = []
     for shape, groups, stride, pad, per_fwd, timed in cases:
         c = shape[-1]
@@ -416,11 +438,13 @@ def check_conv(torch, name, module, cases, make_w, dx_weight, library):
             torch.cuda.synchronize()
             diff = (y.float() - ref.float()).abs()
             tol = CONV_TOL[dname]
+            kind = module.variant(x, w, groups, stride)
             rec = {"check": name, "dtype": dname, "shape": list(shape),
                    "groups": groups, "stride": stride, "padding": pad,
-                   "launches_per_forward": per_fwd,
+                   "launches_per_forward": per_fwd, "variant": kind[0],
                    "max_abs_err": diff.max().item(), "tol": tol,
-                   "ok": bool((diff <= tol * (1 + ref.float().abs())).all())}
+                   "ok": bool((diff <= tol * (1 + ref.float().abs())).all())
+                   and kind[0] == kind[1]}
             if stride == 1:
                 xg = x.detach().requires_grad_()
                 dy = torch.randn(ref.shape, generator=gen,
@@ -439,6 +463,7 @@ def check_conv(torch, name, module, cases, make_w, dx_weight, library):
             if per_fwd:
                 out["max_abs_err"] = max(out["max_abs_err"],
                                          rec["max_abs_err"])
+                out["variants"].setdefault(dname, set()).add(kind[0])
             if timed and dname == "bf16":
                 rec["ms"] = cuda_ms(torch, lambda: module.apply(
                     x, w, stride, pad, groups))
@@ -471,6 +496,7 @@ def check_conv(torch, name, module, cases, make_w, dx_weight, library):
                            f"{len(failures)} case(s)")
     out["bound_by"] = ("bytes" if out["bytes_bound_ms"] * 2 >= out["bound_ms"]
                        else "operations")
+    out["variants"] = {d: sorted(v) for d, v in out["variants"].items()}
     return out
 
 
@@ -489,11 +515,23 @@ def check_grouped(torch):
                           batch == SERVE_BATCH))
     cases += [(shape, shape[-1] // cg, s, p, 0, False)
               for shape, cg, s, p in GROUPED_MORE]
+    def variant(x, w, groups, stride):
+        """(the kernel that ran, the one the rule names): every shape that
+        ``supported`` admits takes the tensor cores in bf16."""
+        cg = x.shape[-1] // groups
+        want = "tensor_cores" if x.dtype == torch.bfloat16 and (
+            gc.supported(x.shape, w.shape, groups, stride)
+            or (x.shape[-1] % 64 == 0 and (16 % cg == 0 or cg in (32, 64,
+                                                                   128)))) \
+            else "cuda_cores"
+        return gc.variant(x, groups), want
+
     module = types.SimpleNamespace(
         apply=gc.grouped_conv2d, plain=gc.grouped_conv2d_plain,
+        variant=variant,
         launch=lambda x, w, s, p, g: functools.partial(
             _conv.launch, gc._kernel, "grouped_conv2d", x,
-            gc.kernel_weight(w), (3, 3), s, p, x.shape[-1] // g))
+            gc.kernel_weight(w, x), (3, 3), s, p, x.shape[-1] // g))
 
     def make_w(c, groups, gen):
         cg = c // groups
@@ -522,6 +560,7 @@ def check_depthwise(torch):
     module = types.SimpleNamespace(
         apply=lambda x, w, s, p, g: dc.depthwise_conv2d(x, w, s, p),
         plain=lambda x, w, s, p, g: dc.depthwise_conv2d_plain(x, w, s, p),
+        variant=lambda x, w, g, s: ("cuda_cores", "cuda_cores"),
         launch=lambda x, w, s, p, g: functools.partial(
             _conv.launch, dc._kernel, "depthwise_conv2d", x,
             dc.kernel_weight(w), (3, 3), s, p))
@@ -1072,15 +1111,39 @@ def train(torch, card, k, tag):
     profile_step(torch, tag, tr, x, y, card, p50 * 1e3)
 
     reset_counts(k)
+    t = time.perf_counter()
     val = tr.validate([(x, y)])
+    val_s = time.perf_counter() - t
     val_counts = counts(k)
     expect_counts(f"{tag}: validate, one batch", val_counts, per_forward)
     if not np.isfinite(val["loss"]):
         raise RuntimeError(f"{tag}: validate loss is not finite: {val}")
+    # a second pass reuses the weights' kernel layouts and folded BNs
+    t = time.perf_counter()
+    tr.validate([(x, y)])
+    emit({"validate": f"{tag}_bf16_224", "card": card, "batch": TRAIN_BATCH,
+          "first_ms": val_s * 1e3,
+          "second_ms": (time.perf_counter() - t) * 1e3,
+          "note": "host clock around Trainer.validate of one batch already "
+                  "on the card"})
     log(f"{tag} validate: {val}")
     del tr
     torch.cuda.empty_cache()
     return add_counts(train_counts, val_counts)
+
+
+def kernel_launches(torch, fn):
+    """CUDA kernels (not copies or sets) that one call of ``fn`` launches,
+    counted by torch.profiler; None where it recorded no device event (not
+    measured: its CUPTI tracing now and then records nothing)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset")))
+    return n or None
 
 
 def serve(torch, card, k, tag, predictor, images):
@@ -1131,6 +1194,12 @@ def serve(torch, card, k, tag, predictor, images):
     p50 = statistics.median(times)
     single = Predictor(name, config, dtype="bf16", batch_size=1, seed=SEED)
     one = images[:1]
+    # CUDA kernels per batch-1 forward: the first call makes the weights'
+    # kernel layouts and the folded BNs, later calls reuse them
+    kernels_1 = {when: kernel_launches(torch, lambda: single.predict_logits(
+        one)) for when in ("first", "later")}
+    log(f"{tag}: CUDA kernels a batch-1 forward launches, first call / "
+        f"later: {kernels_1['first']} / {kernels_1['later']}")
     for _ in range(3):
         single.predict_logits(one)
     lat = []
@@ -1142,6 +1211,7 @@ def serve(torch, card, k, tag, predictor, images):
           "batch64_p50_ms": p50 * 1e3,
           "images_per_s": SERVE_BATCH / p50,
           "batch1_p50_ms": statistics.median(lat) * 1e3,
+          "batch1_cuda_kernels": kernels_1,
           "logits_rel_err_vs_cpu_float32": errs,
           "note": "host clock around predict_logits, H2D and D2H included"})
     return serve_counts
@@ -1203,7 +1273,7 @@ def main():
             raise RuntimeError(f"{tag}: expected "
                                f"{per_forward['conv1x1_bn_act']} fused-route "
                                f"ConvBNs, found {found}")
-    fused, fused_err = check_matmul_fused(torch, path)
+    fused, fused_err, fused_variants = check_matmul_fused(torch, path)
     log("conv1x1_bn_act agrees with its plain version at every shape")
     pool = check_max_pool(torch)
     log("the pool kernels agree with their plain versions at every shape")
@@ -1267,6 +1337,7 @@ def main():
                 "torch.addmm(shift, x, w * scale), no activation", fused_err,
                 f"sum over the 33 launches of one batch-{SERVE_BATCH} bf16 "
                 f"ResNet-50 forward",
+                variants_at_path_shapes=fused_variants,
                 per_forward_by_model={
                     tag: {key: v[key] for key in ("ms", "kernel_ms",
                                                   "plain_ms", "library_ms",
@@ -1296,7 +1367,8 @@ def main():
                         "F.conv2d(..., groups=) on the channels-last view",
                         res["max_abs_err"],
                         f"sum over the launches of one batch-{SERVE_BATCH} "
-                        f"bf16 {model} forward", shapes=res["shapes"]))
+                        f"bf16 {model} forward", shapes=res["shapes"],
+                        variants_at_path_shapes=res["variants"]))
     for mode, batch, what in (("full", SERVE_BATCH, "forward"),
                               ("stats", TRAIN_BATCH, "training step"),
                               ("raw", TRAIN_BATCH, "training step")):

@@ -7,7 +7,9 @@ parameter tree (``stem.conv1.conv.weight``,
 In eval, every 1x1 stride-1 ungrouped ``ConvBN`` runs as one fused kernel
 (conv + folded BN + activation, ``ops/kernels/matmul_fused.py``), the route
 the JAX package takes with ``impl="pallas"``; on a CUDA tensor that is the
-hand-written kernel. At depth 50 that is 33 launches per forward. In
+hand-written kernel. At depth 50 that is 33 launches per forward. The
+folded BN (like the kernel's weight layouts) is made once per version of
+the BN's parameters and statistics (``ops/kernels/_prepared.py``). In
 training a ``ConvBN`` is conv → batch-statistics BN → ReLU. The stem's max
 pool runs the pool kernels (``ops/kernels/max_pool.py``) in both modes. In
 ResNeXt (``groups`` > 1) every eval stride-1 grouped 3x3 runs the grouped
@@ -29,6 +31,7 @@ from convnet_tpu_torch import ops
 from convnet_tpu_torch.core.module import Sequential
 from convnet_tpu_torch.nn import (BatchNorm2d, Conv2d, GlobalAvgPool, Linear,
                                   MaxPool2d)
+from convnet_tpu_torch.ops.kernels import _prepared
 from convnet_tpu_torch.ops.kernels.matmul_fused import conv1x1_bn_act
 from convnet_tpu_torch.regimes import schedules
 
@@ -66,7 +69,11 @@ class ConvBN(nn.Module):
 
     def forward(self, x):
         if self.uses_kernel():
-            scale, shift = self.bn.folded()
+            bn = self.bn
+            scale, shift = _prepared.get(
+                "batch_norm.folded",
+                (bn.weight, bn.bias, bn.running_mean, bn.running_var),
+                lambda *_: bn.folded())
             return conv1x1_bn_act(x, self.conv.weight, scale, shift,
                                   act=self.act)
         return _ACTS[self.act](self.bn(self.conv(x)))

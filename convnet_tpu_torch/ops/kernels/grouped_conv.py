@@ -6,10 +6,16 @@ c < cg, of xpad[b, i s + di, j s + dj, g cg + c] · w[g cg + o, c, di, dj],
 with the grouped weight in the port's OIHW layout (C, cg, kh, kw), float32
 accumulation, and y in x's type.
 
-On a CUDA tensor :func:`grouped_conv2d` launches the kernel of
+On a CUDA tensor :func:`grouped_conv2d` launches a kernel of
 ``csrc/grouped_conv.cu`` or raises; on a CPU tensor it runs
-:func:`grouped_conv2d_plain`, which is also the kernel's oracle in the
-on-card checks. ``launches`` counts kernel launches only.
+:func:`grouped_conv2d_plain`, which is also the kernels' oracle in the
+on-card checks. ``launches`` counts kernel launches only. The C library
+picks the kernel by a shape rule (:func:`variant`): bf16 with C % 64 == 0
+and cg dividing 16 or cg in (32, 64, 128), every shape :func:`supported`
+admits, runs on the tensor cores with the weight packed by
+:func:`block_tiles`; float32 and the other shapes run on the CUDA cores
+with the weight of :func:`transposed_weight`. Without autograd the packed
+weight is made once per weight version (``_prepared``).
 
 The op is differentiable with the reference's backward (``grouped.py``
 :149-173): at stride 1 dx is the same kernel on dy, with the weight flipped
@@ -21,12 +27,13 @@ leaves both to XLA.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import types
 
 import torch
 
-from convnet_tpu_torch.ops.kernels import _build, _conv
+from convnet_tpu_torch.ops.kernels import _build, _conv, _prepared
 
 launches = 0  # kernel launches since the last reset (set it to 0 to reset)
 
@@ -74,26 +81,82 @@ def grouped_conv2d_plain(x, w, stride=1, padding=0, groups=1):
 
 
 @functools.cache
+def _library():
+    lib = _build.library("grouped_conv")
+    _conv.bind(lib.ctt_grouped_conv2d, 13)
+    fn = lib.ctt_grouped_conv2d_variant
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def _kernel():
-    return _conv.bind(_build.library("grouped_conv").ctt_grouped_conv2d, 13)
+    return _library().ctt_grouped_conv2d
 
 
-def _forward(x, w, stride, padding, groups):
+def variant(x, groups):
+    """The kernel that runs for x (CUDA) and ``groups``: "tensor_cores" or
+    "cuda_cores", by the C library's shape rule."""
+    c = x.shape[-1]
+    tc = _library().ctt_grouped_conv2d_variant(
+        c, c // groups, _conv.DTYPES[x.dtype], x.data_ptr())
+    return "tensor_cores" if tc else "cuda_cores"
+
+
+def _forward(x, w, stride, padding, groups, cached=False):
+    """The conv through the kernel (CUDA) or the plain version (CPU).
+    ``cached``: the weight's kernel layout comes from ``_prepared``, made
+    once per version of ``w``."""
     global launches
     _check(x, w, groups)
     if x.device.type == "cpu":
         return grouped_conv2d_plain(x, w, stride, padding, groups)
-    y = _conv.launch(_kernel, "grouped_conv2d", x,
-                     kernel_weight(w.to(x.dtype)), tuple(w.shape[2:]),
+    if not x.is_cuda:
+        raise ValueError(f"no kernel for device {x.device}")
+    if x.dtype not in _conv.DTYPES:
+        raise TypeError(f"no kernel for {x.dtype}: float32 or bfloat16 only")
+    kind = variant(x, groups)
+    if cached:
+        wt = _prepared.get(("grouped_conv.weight", x.dtype, kind), (w,),
+                           lambda w: kernel_weight(w, x, kind))
+    else:
+        wt = kernel_weight(w, x, kind)
+    y = _conv.launch(_kernel, "grouped_conv2d", x, wt, tuple(w.shape[2:]),
                      stride, padding, x.shape[-1] // groups)
     launches += 1
     return y
 
 
-def kernel_weight(w):
-    """The kernel's weight layout: (C, cg, kh, kw) → (kh*kw, cg, C), so a
-    warp's 32 output channels read neighbouring weights."""
+def kernel_weight(w, x, kind=None):
+    """w (C, cg, kh, kw) in x's type and the layout of the kernel that runs
+    for x (``kind``, by default :func:`variant`)."""
+    kind = kind or variant(x, x.shape[-1] // w.shape[1])
+    w = w.to(x.dtype)
+    return block_tiles(w) if kind == "tensor_cores" else transposed_weight(w)
+
+
+def transposed_weight(w):
+    """The CUDA-core kernel's layout: (C, cg, kh, kw) → (kh, kw, cg, C),
+    in memory (kh*kw, cg, C), so a warp's 32 output channels read
+    neighbouring weights."""
     return w.permute(2, 3, 1, 0).contiguous()
+
+
+def block_tiles(w):
+    """The tensor-core kernel's layout: (C, cg, kh, kw) → (kh*kw, C/WB, WB,
+    WB), WB = max(16, cg); tile [t, b, o, i] is the weight from input
+    channel b WB + i to output b WB + o at tap t = di kw + dj. Where cg < 16
+    a tile holds 16/cg groups on its diagonal and zeros elsewhere; where
+    cg >= 16 it is one group's dense cg x cg block."""
+    c, cg, kh, kw = w.shape
+    wb = max(16, cg)
+    per = wb // cg                                  # groups a tile
+    src = w.reshape(c // wb, per, cg, cg, kh * kw).permute(4, 0, 1, 2, 3)
+    tiles = w.new_zeros(kh * kw, c // wb, wb, wb)
+    for a in range(per):
+        blk = slice(a * cg, (a + 1) * cg)
+        tiles[:, :, blk, blk] = src[:, :, a]
+    return tiles
 
 
 def flip_transpose(w, groups):
@@ -118,5 +181,9 @@ _OP = types.SimpleNamespace(forward=_forward, dx_weight=flip_transpose,
 def grouped_conv2d(x, w, stride=1, padding=0, groups=1):
     """x (B, H, W, C); w (C, C/groups, kh, kw), cast to x's type; stride 1
     or 2; padding >= 0. Returns y (B, Ho, Wo, C) in x's type.
-    Differentiable."""
-    return _conv.Conv.apply(_OP, x, w.to(x.dtype), stride, padding, groups)
+    Differentiable; without autograd the weight's kernel layout is made once
+    per weight version."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _conv.Conv.apply(_OP, x, w.to(x.dtype), stride, padding,
+                                groups)
+    return _forward(x, w, stride, padding, groups, cached=True)

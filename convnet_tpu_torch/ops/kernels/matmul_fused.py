@@ -9,7 +9,11 @@ and the epilogue in float32, writing the output once in X's type.
 On a CUDA tensor the wrappers launch that kernel or raise; on a CPU tensor
 they run :func:`matmul_scale_act_plain`, the same function in plain PyTorch,
 which is also the kernel's oracle in the on-card checks. ``launches`` counts
-kernel launches only.
+kernel launches only. The C library picks one of three kernels by a shape
+rule (:func:`variant`): bf16 with K and N multiples of 8 and 16-byte
+aligned operands runs the TMA + wgmma kernel, other bf16 shapes the
+mma.sync kernel, float32 the FMA kernel. Without autograd the weight's
+(N, K) copy in x's type is made once per weight version (``_prepared``).
 
 The op is differentiable, with the JAX package's custom VJP
 (``matmul_fused.py:92-110``): dx, dw, dscale and dshift are plain matmuls
@@ -23,10 +27,11 @@ import functools
 
 import torch
 
-from convnet_tpu_torch.ops.kernels import _build
+from convnet_tpu_torch.ops.kernels import _build, _prepared
 
 ACTS = {"none": 0, "relu": 1, "relu6": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = {2: "tma_wgmma", 1: "mma_sync", 0: "fma_float32"}
 
 launches = 0  # kernel launches since the last reset (set it to 0 to reset)
 
@@ -59,15 +64,39 @@ def matmul_scale_act_plain(x, w, scale, shift, act="relu"):
 
 
 @functools.cache
-def _kernel():
+def _library():
     lib = _build.library("matmul_fused")
     fn = lib.ctt_matmul_scale_act
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    fn = lib.ctt_matmul_scale_act_variant
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return lib
 
 
-def _launch(x, w, scale, shift, act):
+def _kernel():
+    return _library().ctt_matmul_scale_act
+
+
+def variant(x, wt, out):
+    """The kernel that runs for x (M, K), wt (N, K) and out (M, N) on the
+    card, by the C library's shape rule: "tma_wgmma", "mma_sync" or
+    "fma_float32"."""
+    code = _library().ctt_matmul_scale_act_variant(
+        x.data_ptr(), wt.data_ptr(), out.data_ptr(), x.shape[1], wt.shape[0],
+        _DTYPES[x.dtype])
+    return VARIANTS[code]
+
+
+def kernel_weight(w, dtype):
+    """The kernel's weight: w (K, N) as (N, K) row-major in ``dtype``, i.e.
+    the OIHW weight as stored, cast to the compute type first as the TPU
+    kernel's caller does."""
+    return w.t().to(dtype).contiguous()
+
+
+def _launch(x, w, scale, shift, act, cached=False):
     global launches
     if x.dtype not in _DTYPES:
         raise TypeError(f"no kernel for {x.dtype}: float32 or bfloat16 only")
@@ -80,9 +109,11 @@ def _launch(x, w, scale, shift, act):
     n = w.shape[1]
     if max(m, k, n) >= 2 ** 31:
         raise ValueError(f"M, K, N = {m}, {k}, {n}: each must be below 2^31")
-    # the kernel reads W as (N, K) row-major, i.e. the OIHW weight as stored;
-    # cast to the compute type first, as the TPU kernel's caller does
-    wt = w.t().to(x.dtype).contiguous()
+    if cached:
+        wt = _prepared.get(("matmul_fused.weight", x.dtype), (w,),
+                           lambda w: kernel_weight(w, x.dtype))
+    else:
+        wt = kernel_weight(w, x.dtype)
     scale = scale.contiguous()
     shift = shift.contiguous()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
@@ -143,13 +174,17 @@ class _MatmulScaleAct(torch.autograd.Function):
 
 def matmul_scale_act(x, w, scale=None, shift=None, act="relu"):
     """``act((x @ w) * scale + shift)``: x (M, K), w (K, N), scale/shift (N,)
-    float32, None meaning 1 and 0. Output in x's type. Differentiable."""
+    float32, None meaning 1 and 0. Output in x's type. Differentiable;
+    without autograd the kernel's weight is made once per weight version."""
     n = w.shape[-1]
     if scale is None:
         scale = torch.ones(n, dtype=torch.float32, device=w.device)
     if shift is None:
         shift = torch.zeros(n, dtype=torch.float32, device=w.device)
     _check_args(x, w, scale, shift, act)
+    if x.is_cuda and not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w, scale, shift))):
+        return _launch(x, w, scale, shift, act, cached=True)
     return _MatmulScaleAct.apply(x, w, scale, shift, act)
 
 
