@@ -23,12 +23,15 @@ ResNet-50, ResNeXt-50 32x4d, MobileNet v1 and MobileNet-V2.
    Stats and Raw at 128; bf16 and float32), at ragged shapes, and for the
    convs' stride-1 input gradients, which run the same kernels; the fused
    1x1 kernel also at M above 2^23 rows; the Stats and Raw sums of two runs
-   must be bit-equal. Each fused 1x1 and grouped record names the kernel
-   its C library picked (``variant``) and fails unless it is the one the
-   shape rule names: every bf16 shape the grouped route admits runs on the
-   tensor cores, every bf16 fused 1x1 shape with K and N multiples of 8 on
-   the TMA + wgmma kernel. Kernel, plain version and the nearest library
-   call (for MBConv the unfused chain of library calls) are timed with CUDA
+   must be bit-equal. Each fused 1x1, grouped, depthwise and MBConv record
+   names the kernel its C library picked (``variant``) and fails unless it
+   is the one the shape rule names: every bf16 shape the grouped route
+   admits runs on the tensor cores, every bf16 fused 1x1 shape with K and N
+   multiples of 8 on the TMA + wgmma kernel, every 3x3 depthwise conv with
+   whole 16-byte channel vectors on the tiled kernel, every bf16 MBConv
+   block with Cin and Cout multiples of 8 on the tensor-core kernel.
+   Kernel, plain version and the nearest library call (for MBConv the
+   unfused chain of library calls) are timed with CUDA
    events, and the kernel alone (its launches replayed from a CUDA graph)
    with CUDA events too.
 3. serve: each model answers requests of 64, 17 and 1 uint8 images. The
@@ -560,10 +563,11 @@ def check_depthwise(torch):
     module = types.SimpleNamespace(
         apply=lambda x, w, s, p, g: dc.depthwise_conv2d(x, w, s, p),
         plain=lambda x, w, s, p, g: dc.depthwise_conv2d_plain(x, w, s, p),
-        variant=lambda x, w, g, s: ("cuda_cores", "cuda_cores"),
+        variant=lambda x, w, g, s: (dc.variant(x, w, s),
+                                    depthwise_variant_expected(x, s)),
         launch=lambda x, w, s, p, g: functools.partial(
-            _conv.launch, dc._kernel, "depthwise_conv2d", x,
-            dc.kernel_weight(w), (3, 3), s, p))
+            _conv.launch, dc._kernel, "depthwise_conv2d", x, w, (3, 3), s,
+            p))
 
     def make_w(c, groups, gen):
         return torch.randn(c, 1, 3, 3, generator=gen, device="cuda") / 3
@@ -573,6 +577,26 @@ def check_depthwise(torch):
 
     return check_conv(torch, "depthwise_conv2d", module, cases, make_w,
                       lambda w, g: w.flip(-2, -1), library)
+
+
+def depthwise_variant_expected(x, stride):
+    """The depthwise conv's shape rule for a fresh, aligned x and w (3x3,
+    the same stride both ways): whole 16-byte channel vectors (8 bf16 or 4
+    float32 channels) take the tiled kernel, other C the per-pixel one."""
+    vec = 16 // x.element_size()
+    return "tiled" if x.shape[-1] % vec == 0 and stride in (1, 2) \
+        else "per_pixel"
+
+
+def mbconv_variant_expected(mode, cin, ch, cout, expand, dname):
+    """The MBConv shape rule for a fresh, aligned x: bf16 with Cin a
+    multiple of 8, Ch of 4, Cout of 8 up to 320 (Full, Raw), an expand
+    stage or Cin == Ch, takes the tensor-core kernel (the staging of the
+    narrow shapes here fits a block); the rest the CUDA-core kernel."""
+    ok = (dname == "bf16" and cin % 8 == 0 and ch % 4 == 0
+          and (expand or cin == ch)
+          and (mode == "stats" or (cout % 8 == 0 and cout <= 320)))
+    return "tensor_cores" if ok else "cuda_cores"
 
 
 def mbconv_shapes(torch, predictor, images):
@@ -665,9 +689,10 @@ def check_mbconv(torch, path):
     path (``path``: (H, W, Cin, hidden, Cout, expand, residual) → launches
     per forward), Full at batch 64 and 1, Stats and Raw at batch 128, and at
     the ragged cases, in bf16 and float32, each mode against its plain
-    version; the sums of two Stats and two Raw runs bit-equal. Times in bf16
-    at batch 64 (Full) and 128 (Stats, Raw), the paths' types and batches.
-    Returns {mode: summary} with per-forward (Full) or per-step sums."""
+    version, and the kernel that ran against the one the shape rule names;
+    the sums of two Stats and two Raw runs bit-equal. Times in bf16 at batch
+    64 (Full) and 128 (Stats, Raw), the paths' types and batches. Returns
+    {mode: summary} with per-forward (Full) or per-step sums."""
     import torch.nn.functional as F
     from convnet_tpu_torch.ops.kernels import mbconv as mb
     dtypes = {"bf16": torch.bfloat16, "float32": torch.float32}
@@ -688,8 +713,8 @@ def check_mbconv(torch, path):
              "raw": "mbconv_raw"}
     out = {mode: {"ms": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0,
                   "library_ms": 0.0, "bound_ms": 0.0, "bytes_bound_ms": 0.0,
-                  "cuda_core_floor_ms": 0.0, "max_abs_err": 0.0,
-                  "shapes": []} for mode in names}
+                  "tensor_core_floor_ms": 0.0, "max_abs_err": 0.0,
+                  "shapes": [], "variants": {}} for mode in names}
     failures = []
     for mode, shape, per_fwd, timed in cases:
         b, h, w, cin, ch, cout, expand, residual = shape
@@ -707,10 +732,15 @@ def check_mbconv(torch, path):
             again = fn(*head) if mode != "full" else None
             torch.cuda.synchronize()
             tol = MBCONV_TOL[dname]
+            kind = mb.variant(mode, x, ch, cout if mode != "stats" else 0,
+                              expand)
+            want = mbconv_variant_expected(mode, cin, ch, cout, expand, dname)
+            _, run = mb.kernel_args(*head, mode=mode)
             rec = {"check": names[mode], "dtype": dname, "shape": list(shape),
-                   "launches_per_forward": per_fwd, "tol": tol,
+                   "launches_per_forward": per_fwd, "variant": kind,
+                   "tile": list(run.tile), "split": run.split, "tol": tol,
                    "sum_tol": SUM_TOL}
-            ok = True
+            ok = kind == want
             if mode != "stats":
                 y, y_ref = (got, ref) if mode == "full" else (got[0], ref[0])
                 diff = (y.float() - y_ref.float()).abs()
@@ -734,6 +764,7 @@ def check_mbconv(torch, path):
             if per_fwd:
                 out[mode]["max_abs_err"] = max(out[mode]["max_abs_err"],
                                                rec["max_abs_err"])
+                out[mode]["variants"].setdefault(dname, set()).add(kind)
             if timed and dname == "bf16":
                 rec.update(time_mbconv(torch, F, mb, mode, args, residual,
                                        fn, plain, head, kw))
@@ -744,18 +775,19 @@ def check_mbconv(torch, path):
                 rec["bound_ms"] = max(bytes_ms, ops_ms)
                 rec["bound_by"] = "bytes" if bytes_ms >= ops_ms \
                     else "operations"
-                rec["cuda_core_floor_ms"] = \
-                    ops / PEAK_OPS_PER_S["float32"] * 1e3
+                # the products alone at the bf16 tensor-core peak
+                rec["tensor_core_floor_ms"] = \
+                    ops / PEAK_OPS_PER_S["bf16"] * 1e3
                 summary = out[mode]
                 for key in ("ms", "kernel_ms", "plain_ms", "library_ms",
-                            "bound_ms", "cuda_core_floor_ms"):
+                            "bound_ms", "tensor_core_floor_ms"):
                     summary[key] += per_fwd * rec[key]
                 if rec["bound_by"] == "bytes":
                     summary["bytes_bound_ms"] += per_fwd * rec["bound_ms"]
                 summary["shapes"].append({k: rec[k] for k in (
-                    "shape", "launches_per_forward", "ms", "kernel_ms",
-                    "plain_ms", "library_ms", "bound_ms", "bound_by",
-                    "cuda_core_floor_ms")})
+                    "shape", "launches_per_forward", "variant", "tile",
+                    "split", "ms", "kernel_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "tensor_core_floor_ms")})
             emit(rec)
             if not ok:
                 failures.append(rec)
@@ -766,6 +798,8 @@ def check_mbconv(torch, path):
     for summary in out.values():
         summary["bound_by"] = ("bytes" if summary["bytes_bound_ms"] * 2
                                >= summary["bound_ms"] else "operations")
+        summary["variants"] = {d: sorted(v)
+                               for d, v in summary["variants"].items()}
     torch.cuda.empty_cache()
     return out
 
@@ -774,13 +808,13 @@ def time_mbconv(torch, F, mb, mode, args, residual, fn, plain, head, kw):
     """Device ms per call of the wrapper, the kernel alone (bare launches
     of the prepared arguments from a CUDA graph), the plain version and the
     library chain."""
-    x, we = args[0], args[1]
-    tensors, tile_hw = mb.kernel_args(*head, mode=mode)
-    outs = mb.outputs(mode, x, args[4].shape[1], args[7].shape[1])
+    x = args[0]
+    tensors, run = mb.kernel_args(*head, mode=mode)
+    outs = mb.outputs(mode, x, args[4].shape[1], args[7].shape[1], run)
     return {
         "ms": cuda_ms(torch, lambda: fn(*head, **kw)),
         "kernel_ms": kernel_alone_ms(torch, lambda: mb.call(
-            mode, tensors, tile_hw, outs, **kw)),
+            mode, tensors, run, outs, **kw)),
         "plain_ms": cuda_ms(torch, lambda: plain(*head, **kw)),
         "library_ms": cuda_ms(torch, lambda: mbconv_library(
             torch, F, mode, *args, residual)),
@@ -1010,7 +1044,8 @@ def check_step_against_cpu(torch, tag, **overrides):
 # kernel name → share of the step, first match wins
 KERNEL_GROUPS = (("pool kernels", ("max_pool2d_",)),
                  ("mbconv kernels", ("mbconv_",)),
-                 ("depthwise kernel", ("depthwise_conv2d_kernel",)),
+                 ("depthwise kernel", ("depthwise_conv2d_kernel",
+                                       "depthwise_tiled")),
                  ("convolutions", ("conv", "xmma", "gemm", "cutlass", "sm90",
                                    "dgrad", "wgrad", "cudnn")),
                  ("reductions", ("reduce_kernel",)),
@@ -1386,7 +1421,8 @@ def main():
             res["max_abs_err"],
             f"sum over the 13 launches of one batch-{batch} bf16 "
             f"MobileNet-V2 {what}", shapes=res["shapes"],
-            cuda_core_floor_ms=res["cuda_core_floor_ms"]))
+            variants_at_path_shapes=res["variants"],
+            tensor_core_floor_ms=res["tensor_core_floor_ms"]))
     emit({"kernels": rows})
     faulthandler.cancel_dump_traceback_later()
     print(card, flush=True)

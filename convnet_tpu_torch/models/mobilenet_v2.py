@@ -8,7 +8,8 @@ Module names follow the JAX package's parameter tree (``features.0.conv``,
 Routes, by the reference's predicate (``mobilenet_v2.py:52-69``) without its
 env flag and its v5e window on the hidden width: every stride-1 block is one
 fused MBConv (``ops/kernels/mbconv.py``), 13 of the 17 at width 1.0. In eval
-that is ``mbconv_infer`` with the three BNs folded, one Full kernel a block;
+that is ``mbconv_infer`` with the three BNs folded (once per version of each
+BN's parameters and statistics, as ``ConvBN`` folds), one Full kernel a block;
 in training ``mbconv_train``, a Stats and a Raw kernel a block, whose
 backward recomputes the block layer by layer. The 4 stride-2 blocks run
 layer by layer: in eval the expand and the project on the fused 1x1 kernel
@@ -21,7 +22,8 @@ from __future__ import annotations
 from torch import nn
 
 from convnet_tpu_torch.core.module import Sequential
-from convnet_tpu_torch.models.resnet import ConvBN, weight_decay_config
+from convnet_tpu_torch.models.resnet import (ConvBN, folded_bn,
+                                             weight_decay_config)
 from convnet_tpu_torch.nn import Dropout, GlobalAvgPool, Linear
 from convnet_tpu_torch.ops.kernels import mbconv
 from convnet_tpu_torch.regimes import schedules
@@ -64,9 +66,9 @@ class InvertedResidual(nn.Module):
         if not self.training:
             s1 = t1 = None
             if ex is not None:
-                s1, t1 = ex.bn.folded()
-            return mbconv.mbconv_infer(x, we, s1, t1, wd, *dw.bn.folded(),
-                                       wp, *pj.bn.folded(),
+                s1, t1 = folded_bn(ex.bn)
+            return mbconv.mbconv_infer(x, we, s1, t1, wd, *folded_bn(dw.bn),
+                                       wp, *folded_bn(pj.bn),
                                        residual=self.use_res)
         g1 = b1 = None
         if ex is not None:

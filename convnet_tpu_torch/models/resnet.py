@@ -45,6 +45,15 @@ def weight_decay_config(value=1e-4):
 _ACTS = {"relu": ops.relu, "relu6": ops.relu6, "none": lambda x: x}
 
 
+def folded_bn(bn):
+    """bn's (scale, shift), made once per version of its parameters and
+    statistics (``_prepared``)."""
+    return _prepared.get(
+        "batch_norm.folded",
+        (bn.weight, bn.bias, bn.running_mean, bn.running_var),
+        lambda *_: bn.folded())
+
+
 class ConvBN(nn.Module):
     """conv → BN (→ activation): the fusable unit. ``act`` is ``"relu"``,
     ``"relu6"`` or ``"none"``; ``relu=False`` means ``"none"`` whatever
@@ -69,11 +78,7 @@ class ConvBN(nn.Module):
 
     def forward(self, x):
         if self.uses_kernel():
-            bn = self.bn
-            scale, shift = _prepared.get(
-                "batch_norm.folded",
-                (bn.weight, bn.bias, bn.running_mean, bn.running_var),
-                lambda *_: bn.folded())
+            scale, shift = folded_bn(self.bn)
             return conv1x1_bn_act(x, self.conv.weight, scale, shift,
                                   act=self.act)
         return _ACTS[self.act](self.bn(self.conv(x)))

@@ -6,11 +6,17 @@ Counterpart of ``convnet_tpu/ops/pallas/depthwise.py``
 di outer and dj inner in float32, y in x's type. The weight is the port's
 OIHW depthwise weight (C, 1, kh, kw).
 
-On a CUDA tensor :func:`depthwise_conv2d` launches the kernel of
+On a CUDA tensor :func:`depthwise_conv2d` launches a kernel of
 ``csrc/depthwise_conv.cu`` or raises; on a CPU tensor it runs
-:func:`depthwise_conv2d_plain`, which is also the kernel's oracle in the
+:func:`depthwise_conv2d_plain`, which is also the kernels' oracle in the
 on-card checks. ``launches`` counts kernel launches only, forward and dx
-alike.
+alike. Both kernels read the OIHW weight as it is, in x's type. The C
+library picks the kernel by a shape rule (:func:`variant`): a 3x3 kernel
+with one stride (1 or 2) both ways, C a multiple of the 16-byte vector (8
+bf16 or 4 float32 channels) and 16-byte aligned x and w run the tiled
+kernel (staged haloed tiles, a persistent grid); other shapes the
+per-pixel kernel. Without autograd the weight's cast to x's type is made
+once per weight version (``_prepared``).
 
 The op is differentiable with the reference's backward (``depthwise.py``
 :123-148): at stride 1 dx is the same kernel on dy with the spatially
@@ -22,12 +28,13 @@ float32, in plain torch ops.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import types
 
 import torch
 
-from convnet_tpu_torch.ops.kernels import _build, _conv
+from convnet_tpu_torch.ops.kernels import _build, _conv, _prepared
 
 launches = 0  # kernel launches since the last reset (set it to 0 to reset)
 
@@ -62,26 +69,44 @@ def depthwise_conv2d_plain(x, w, stride=1, padding=0):
 
 
 @functools.cache
+def _library():
+    lib = _build.library("depthwise_conv")
+    _conv.bind(lib.ctt_depthwise_conv2d, 12)
+    fn = lib.ctt_depthwise_conv2d_variant
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def _kernel():
-    return _conv.bind(_build.library("depthwise_conv").ctt_depthwise_conv2d,
-                      12)
+    return _library().ctt_depthwise_conv2d
 
 
-def _forward(x, w, stride, padding, groups=None):
+def variant(x, w, stride):
+    """The kernel that runs for x and w (CUDA, w in x's type) at
+    ``stride``: "tiled" or "per_pixel", by the C library's shape rule."""
+    (kh, kw), (sh, sw) = tuple(w.shape[2:]), _conv.pair(stride)
+    tiled = _library().ctt_depthwise_conv2d_variant(
+        x.shape[-1], kh, kw, sh, sw, _conv.DTYPES[x.dtype], x.data_ptr(),
+        w.data_ptr())
+    return "tiled" if tiled else "per_pixel"
+
+
+def _forward(x, w, stride, padding, groups=None, cached=False):
+    """The conv through a kernel (CUDA) or the plain version (CPU).
+    ``cached``: w's cast to x's type comes from ``_prepared``, made once per
+    version of ``w``; otherwise w is already in x's type."""
     global launches
     _check(x, w)
     if x.device.type == "cpu":
         return depthwise_conv2d_plain(x, w, stride, padding)
-    y = _conv.launch(_kernel, "depthwise_conv2d", x,
-                     kernel_weight(w.to(x.dtype)), tuple(w.shape[2:]),
-                     stride, padding)
+    if cached and (w.dtype != x.dtype or not w.is_contiguous()):
+        w = _prepared.get(("depthwise_conv.weight", x.dtype), (w,),
+                          lambda w: w.to(x.dtype).contiguous())
+    y = _conv.launch(_kernel, "depthwise_conv2d", x, w.contiguous(),
+                     tuple(w.shape[2:]), stride, padding)
     launches += 1
     return y
-
-
-def kernel_weight(w):
-    """The kernel's weight layout: (C, 1, kh, kw) → (kh*kw, C)."""
-    return w.reshape(w.shape[0], -1).t().contiguous()
 
 
 def _weight_grad(x, dy, kernel, stride, padding, groups=None):
@@ -106,6 +131,9 @@ _OP = types.SimpleNamespace(forward=_forward,
 
 def depthwise_conv2d(x, w, stride=1, padding=0):
     """x (B, H, W, C); w (C, 1, kh, kw), cast to x's type; stride 1 or 2;
-    padding >= 0. Returns y (B, Ho, Wo, C) in x's type. Differentiable."""
-    return _conv.Conv.apply(_OP, x, w.to(x.dtype), stride, padding,
-                            x.shape[-1])
+    padding >= 0. Returns y (B, Ho, Wo, C) in x's type. Differentiable;
+    without autograd the weight's cast is made once per weight version."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _conv.Conv.apply(_OP, x, w.to(x.dtype), stride, padding,
+                                x.shape[-1])
+    return _forward(x, w, stride, padding, cached=True)

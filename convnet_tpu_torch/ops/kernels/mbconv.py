@@ -19,7 +19,15 @@ x's type. we and wp are cast to x's type, the depthwise weight ``wd9``
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version below, which is also the kernel's oracle in the
 on-card checks. ``full_launches``, ``stats_launches`` and ``raw_launches``
-count kernel launches only.
+count kernel launches only. The C library picks the kernel by a shape rule
+(:func:`variant`): bf16 with Cin and Cout multiples of 8 (Cout <= 320), Ch
+a multiple of 4, an expand stage or Cin == Ch, and a 16-byte aligned x runs
+the tensor-core
+kernel, which takes the weights packed by :func:`pack_expand` and
+:func:`pack_project` (made once per weight version, ``_prepared``), an
+output tile of at most 8 x 8 (:func:`tc_tile`) and a split of the hidden
+channels where the tiles alone cannot fill the card (:func:`plan`);
+float32 and other shapes run the CUDA-core kernel (:func:`tile`).
 
 Above the kernels, as in the reference: :func:`mbconv_infer`,
 :func:`mbconv_train_forward` (the expand-BN moments from the Gram trick, the
@@ -35,21 +43,29 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from convnet_tpu_torch import ops
-from convnet_tpu_torch.ops.kernels import _build
+from convnet_tpu_torch.ops.kernels import _build, _prepared
 from convnet_tpu_torch.ops.kernels.depthwise_conv import depthwise_conv2d
 
 ACTS = {"none": 0, "relu": 1, "relu6": 2}
+MODES = {"full": 0, "stats": 1, "raw": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel's limits: a tile of at most MAX_Q output and MAX_P haloed
-# pixels; each thread keeps 8 pixels x 10 groups of 32 output channels
+# the CUDA-core kernel's limits: a tile of at most MAX_Q output and MAX_P
+# haloed pixels; each thread keeps 8 pixels x 10 groups of 32 output
+# channels
 MAX_Q, MAX_P, MAX_COUT = 64, 104, 320
 CHUNK = 32
 SMEM_LIMIT = 232448      # bytes of shared memory a block may have (H100)
+# the tensor-core kernel's: output tiles of at most TC_TILE x TC_TILE, hidden
+# chunks of TC_CHUNK, at most TC_MAX_SPLIT hidden slabs, Cout parts of one
+# of TC_COUT_BLOCKS channels
+TC_TILE, TC_CHUNK, TC_MAX_SPLIT = 8, 32, 8
+TC_COUT_BLOCKS = (32, 64, 96, 160)
 
 full_launches = 0   # Full kernel launches since the last reset (set to 0)
 stats_launches = 0  # Stats kernel launches since the last reset
@@ -125,10 +141,12 @@ def mbconv_raw_plain(x, we, s1, t1, wd9, s2, t2, wp, *, act_mid="relu6"):
 
 # ------------------------------------------------------------------ kernels
 
+@functools.cache
 def tile(h, w):
-    """The kernel's output tile (TH, TW) for an H x W image: at most MAX_Q
-    pixels and MAX_P haloed ones, the fewest haloed plus output pixels over
-    the whole image (the expand runs on the halo, the rest on the tile)."""
+    """The CUDA-core kernel's output tile (TH, TW) for an H x W image: at
+    most MAX_Q pixels and MAX_P haloed ones, the fewest haloed plus output
+    pixels over the whole image (the expand runs on the halo, the rest on
+    the tile)."""
     best = None
     for tw in range(1, min(w, 16) + 1):
         for th in range(1, min(h, MAX_Q // tw) + 1):
@@ -142,7 +160,8 @@ def tile(h, w):
 
 
 def smem_bytes(th, tw, cin, cout, expand, with_project):
-    """The kernel's shared memory at this tile (``smem_bytes`` in the .cu)."""
+    """The CUDA-core kernel's shared memory at this tile (``smem_bytes``
+    in the .cu)."""
     p = (th + 2) * (tw + 2)
     cin_pad = -(-cin // 4) * 4
     floats = p * cin_pad + p * CHUNK + MAX_Q * CHUNK
@@ -151,6 +170,101 @@ def smem_bytes(th, tw, cin, cout, expand, with_project):
     if with_project:
         floats += CHUNK * 32 * -(-cout // 32)
     return floats * 4
+
+
+@functools.cache
+def tc_tile(h, w):
+    """The tensor-core kernel's output tile (TH, TW) for an H x W image: at
+    most TC_TILE a side (a warp per column, four m16 tiles of output
+    pixels), the fewest haloed plus output pixels over the whole image."""
+    best = None
+    for tw in range(1, min(w, TC_TILE) + 1):
+        for th in range(1, min(h, TC_TILE) + 1):
+            tiles = -(-h // th) * -(-w // tw)
+            cost = (tiles * ((th + 2) * (tw + 2) + th * tw), -th * tw)
+            if best is None or cost < best[0]:
+                best = (cost, (th, tw))
+    return best[1]
+
+
+def cout_block(cout):
+    """Output channels a part of the tensor-core kernel's project: the
+    Cout class it is instantiated for (2, 4, 6 or 10 n8 fragments a warp,
+    two warps across a part); Cout above 160 takes several parts."""
+    return next((c for c in TC_COUT_BLOCKS if cout <= c), TC_COUT_BLOCKS[-1])
+
+
+def tc_smem_bytes(th, tw, cin, cout, expand, mode):
+    """The tensor-core kernel's shared memory at this tile (``tc_smem`` in
+    the .cu): two staged x tiles (bf16 rows of Cin rounded up to 16, plus
+    8), a chunk of each packed weight, u1 (float32), u2 (bf16), the
+    sums' scratch and two chunks' per-channel vectors (13 rows of 32
+    float32: s1, t1, s2, t2 and the 9 taps)."""
+    p = (th + 2) * (tw + 2)
+    row = -(-cin // 16) * 16 + 8
+    hs = TC_CHUNK + 8
+    cb = cout_block(cout) if mode != "stats" else 0
+    n = 2 * p * row * 2 + p * hs * 4
+    if expand:
+        n += TC_CHUNK * row * 2
+    if mode != "stats":
+        n += cb * hs * 2 + 64 * hs * 2
+    n += {"stats": 2 * 8 * TC_CHUNK * 4, "raw": 2 * 4 * cb * 4,
+          "full": 0}[mode]
+    return n + 2 * 13 * TC_CHUNK * 4
+
+
+@functools.cache
+def split(tiles, ch, cout, mode, sms):
+    """Hidden slabs of the tensor-core kernel: as many as keep two blocks on
+    every SM busy where the tiles (times the Cout parts) alone cannot, at
+    most TC_MAX_SPLIT and one chunk each, whole chunks a slab and no slab
+    empty."""
+    chunks = -(-ch // TC_CHUNK)
+    parts = 1 if mode == "stats" else -(-cout // cout_block(cout))
+    n = max(1, min(TC_MAX_SPLIT, chunks, 2 * sms // (tiles * parts)))
+    per = -(-chunks // n)
+    return -(-chunks // per)
+
+
+class Plan(NamedTuple):
+    """How a call runs: the kernel, its output tile, the tiles over the
+    batch (the rows of the partial sums) and the hidden slabs."""
+    kind: str
+    tile: tuple
+    tiles: int
+    split: int
+
+
+def plan(mode, x_shape, ch, cout, kind, sms):
+    """The launch's plan for x of ``x_shape`` on the kernel ``kind`` of a
+    card with ``sms`` SMs."""
+    b, h, w, _ = x_shape
+    th, tw = tc_tile(h, w) if kind == "tensor_cores" else tile(h, w)
+    tiles = b * -(-h // th) * -(-w // tw)
+    slabs = split(tiles, ch, cout, mode, sms) if kind == "tensor_cores" \
+        else 1
+    return Plan(kind, (th, tw), tiles, slabs)
+
+
+def pack_expand(we, dtype):
+    """The tensor-core kernel's expand weight: (Cin, Ch) → (Ch, Cin) in
+    ``dtype``, Ch rounded up to TC_CHUNK and Cin to 16 with zeros, so each
+    chunk's rows are the mma's B operand with K contiguous."""
+    cin, ch = we.shape
+    out = we.new_zeros((-(-ch // TC_CHUNK) * TC_CHUNK, -(-cin // 16) * 16),
+                       dtype=dtype)
+    out[:ch, :cin] = we.t().to(dtype)
+    return out
+
+
+def pack_project(wp, dtype):
+    """The tensor-core kernel's project weight: (Ch, Cout) → (Cout, Ch) in
+    ``dtype``, Ch rounded up to TC_CHUNK with zeros."""
+    ch, cout = wp.shape
+    out = wp.new_zeros((cout, -(-ch // TC_CHUNK) * TC_CHUNK), dtype=dtype)
+    out[:, :ch] = wp.t().to(dtype)
+    return out
 
 
 def _check(x, we, s1, t1, wd9, s2=None, t2=None, wp=None, s3=None, t3=None,
@@ -194,22 +308,50 @@ def _kernels():
     lib = _build.library("mbconv")
     p, i = ctypes.c_void_p, ctypes.c_int
     full = lib.ctt_mbconv_full
-    full.argtypes = [p] * 11 + [i] * 12 + [p]
+    full.argtypes = [p] * 12 + [i] * 13 + [p]
     stats = lib.ctt_mbconv_stats
-    stats.argtypes = [p] * 7 + [i] * 9 + [p]
+    stats.argtypes = [p] * 7 + [i] * 10 + [p]
     raw = lib.ctt_mbconv_raw
-    raw.argtypes = [p] * 11 + [i] * 10 + [p]
-    for fn in (full, stats, raw):
+    raw.argtypes = [p] * 12 + [i] * 11 + [p]
+    which = lib.ctt_mbconv_variant
+    which.argtypes = [i] * 6 + [p]
+    for fn in (full, stats, raw, which):
         fn.restype = ctypes.c_int
-    return {"full": full, "stats": stats, "raw": raw}
+    return {"full": full, "stats": stats, "raw": raw, "variant": which}
+
+
+@functools.cache
+def _sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def variant(mode, x, ch, cout, expand):
+    """The kernel that runs for x (CUDA) in ``mode``: "tensor_cores" or
+    "cuda_cores", by the C library's shape rule."""
+    tc = _kernels()["variant"](MODES[mode], x.shape[-1], ch, cout,
+                               int(expand), _DTYPES[x.dtype], x.data_ptr())
+    return "tensor_cores" if tc else "cuda_cores"
+
+
+def _float32(v):
+    """v as a contiguous float32 tensor on a 16-byte boundary (the
+    tensor-core kernel copies its rows with 16-byte cp.async); a copy is
+    made once per version."""
+    if v is None or (v.dtype == torch.float32 and v.is_contiguous()
+                     and v.data_ptr() % 16 == 0):
+        return v
+    return _prepared.get("mbconv.float32", (v,), lambda v: torch.empty(
+        v.shape, dtype=torch.float32, device=v.device).copy_(v))
 
 
 def kernel_args(x, we, s1, t1, wd9, s2=None, t2=None, wp=None, s3=None,
                 t3=None, *, mode):
-    """Checks that the kernel can take these tensors and returns them in its
-    layouts: x, we and wp contiguous in x's type, the rest float32. Also the
-    tile (TH, TW). Raises on a device without a kernel and on a shape beyond
-    the kernel's limits, naming it."""
+    """Checks that a kernel can take these tensors and returns them in its
+    layouts: x contiguous; we and wp in x's type, packed for the
+    tensor-core kernel (:func:`pack_expand`, :func:`pack_project`) or
+    contiguous for the CUDA-core one; the rest float32. Also the launch's
+    :class:`Plan`. Raises on a device without a kernel and on a shape
+    beyond the kernels' limits, naming it."""
     if not x.is_cuda:
         raise ValueError(f"no kernel for device {x.device}")
     if x.dtype not in _DTYPES:
@@ -217,42 +359,54 @@ def kernel_args(x, we, s1, t1, wd9, s2=None, t2=None, wp=None, s3=None,
     if x.numel() >= 2 ** 31:
         raise ValueError(f"x has {x.numel()} elements: the kernel's 32-bit "
                          f"pixel offsets need fewer than 2^31")
+    x = x.contiguous()
     b, h, w, cin = x.shape
+    ch = wd9.shape[1]
     cout = wp.shape[1] if wp is not None else 0
-    if wp is not None and cout > MAX_COUT:
-        raise ValueError(f"Cout = {cout}: the kernel takes at most "
-                         f"{MAX_COUT} output channels")
-    th, tw = tile(h, w)
-    need = smem_bytes(th, tw, cin, cout, we is not None, mode != "stats")
-    if need > SMEM_LIMIT:
-        raise ValueError(f"Cin = {cin}, Cout = {cout}: the kernel needs {need} "
-                         f"bytes of shared memory, above {SMEM_LIMIT}")
-    tensors = [x.contiguous(), None if we is None else
-               we.to(x.dtype).contiguous()]
-    tensors += [None if v is None else v.float().contiguous()
-                for v in (s1, t1, wd9, s2, t2)]
-    tensors += [None if wp is None else wp.to(x.dtype).contiguous()]
-    tensors += [None if v is None else v.float().contiguous()
-                for v in (s3, t3)]
+    kind = variant(mode, x, ch, cout, we is not None)
+    dt = x.dtype
+    if kind == "tensor_cores":
+        we_k = None if we is None else _prepared.get(
+            ("mbconv.we", dt), (we,), lambda w: pack_expand(w, dt))
+        wp_k = None if wp is None else _prepared.get(
+            ("mbconv.wp", dt), (wp,), lambda w: pack_project(w, dt))
+    else:
+        if wp is not None and cout > MAX_COUT:
+            raise ValueError(f"Cout = {cout}: the kernel takes at most "
+                             f"{MAX_COUT} output channels")
+        th, tw = tile(h, w)
+        need = smem_bytes(th, tw, cin, cout, we is not None, mode != "stats")
+        if need > SMEM_LIMIT:
+            raise ValueError(f"Cin = {cin}, Cout = {cout}: the kernel needs "
+                             f"{need} bytes of shared memory, above "
+                             f"{SMEM_LIMIT}")
+        we_k = None if we is None else we.to(dt).contiguous()
+        wp_k = None if wp is None else wp.to(dt).contiguous()
+    tensors = [x, we_k, *(_float32(v) for v in (s1, t1, wd9, s2, t2)), wp_k,
+               *(_float32(v) for v in (s3, t3))]
     for v in tensors:
         if v is not None and v.device != x.device:
             raise ValueError(f"an argument is on {v.device}, x on {x.device}")
-    return tensors, (th, tw)
+    sms = _sms(x.device.index if x.device.index is not None
+               else torch.cuda.current_device())
+    return tensors, plan(mode, x.shape, ch, cout, kind, sms)
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def call(mode, tensors, tile_hw, outs, *, residual=False, act_mid="relu6",
+def call(mode, tensors, run, outs, *, residual=False, act_mid="relu6",
          act_out="none"):
-    """One launch on the current stream of x's device, uncounted. ``tensors``
-    and ``tile_hw`` from :func:`kernel_args`; ``outs``: (y,) for Full,
-    (partials, sums) for Stats, (h3, partials, sums) for Raw."""
+    """One launch on the current stream of x's device, uncounted.
+    ``tensors`` and ``run`` (the :class:`Plan`) from :func:`kernel_args`;
+    ``outs`` from :func:`outputs`: (y, part) for Full, (partials, sums)
+    for Stats, (h3, part, partials, sums) for Raw. Cout is y's (or h3's)
+    last dimension: the packed project weight is (Cout, Ch)."""
     x, we, s1, t1, wd9, s2, t2, wp, s3, t3 = tensors
     b, h, w, cin = x.shape
     ch = wd9.shape[1]
-    th, tw = tile_hw
+    (th, tw), slabs = run.tile, run.split
     fn = _kernels()[mode]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -260,34 +414,37 @@ def call(mode, tensors, tile_hw, outs, *, residual=False, act_mid="relu6",
         dt = _DTYPES[x.dtype]
         if mode == "full":
             err = fn(*head, _ptr(s2), _ptr(t2), _ptr(wp), _ptr(s3), _ptr(t3),
-                     outs[0].data_ptr(), b, h, w, cin, ch, wp.shape[1], th,
-                     tw, int(residual), ACTS[act_mid], ACTS[act_out], dt,
-                     stream)
+                     *(_ptr(o) for o in outs), b, h, w, cin, ch,
+                     outs[0].shape[-1], th, tw, slabs, int(residual),
+                     ACTS[act_mid], ACTS[act_out], dt, stream)
         elif mode == "stats":
-            err = fn(*head, outs[0].data_ptr(), outs[1].data_ptr(), b, h, w,
-                     cin, ch, th, tw, ACTS[act_mid], dt, stream)
+            err = fn(*head, *(_ptr(o) for o in outs), b, h, w, cin, ch, th,
+                     tw, slabs, ACTS[act_mid], dt, stream)
         else:
             err = fn(*head, _ptr(s2), _ptr(t2), _ptr(wp),
-                     *(o.data_ptr() for o in outs), b, h, w, cin, ch,
-                     wp.shape[1], th, tw, ACTS[act_mid], dt, stream)
+                     *(_ptr(o) for o in outs), b, h, w, cin, ch,
+                     outs[0].shape[-1], th, tw, slabs, ACTS[act_mid], dt,
+                     stream)
     if err != 0:
         raise RuntimeError(f"mbconv {mode} kernel launch failed: CUDA error "
-                           f"{err} (x {tuple(x.shape)}, Ch {ch}, tile "
-                           f"{tile_hw}, {x.dtype})")
+                           f"{err} (x {tuple(x.shape)}, Ch {ch}, {run}, "
+                           f"{x.dtype})")
 
 
-def outputs(mode, x, ch, cout):
-    """The kernel's output tensors for ``call``."""
+def outputs(mode, x, ch, cout, run):
+    """The kernel's output and scratch tensors for ``call`` under the
+    :class:`Plan` ``run``."""
     b, h, w, _ = x.shape
-    th, tw = tile(h, w)
-    blocks = b * -(-h // th) * -(-w // tw)
     c = ch if mode == "stats" else cout
-    sums = [torch.empty((blocks, 2, c), dtype=torch.float32, device=x.device),
+    sums = [torch.empty((run.tiles, 2, c), dtype=torch.float32,
+                        device=x.device),
             torch.empty((2, c), dtype=torch.float32, device=x.device)]
     if mode == "stats":
         return sums
     y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    return [y] + (sums if mode == "raw" else [])
+    part = None if run.split == 1 else torch.empty(
+        (run.split, b * h * w, cout), dtype=torch.float32, device=x.device)
+    return [y, part] + (sums if mode == "raw" else [])
 
 
 def _on_cpu(x):
@@ -309,10 +466,10 @@ def mbconv_full(x, we, s1, t1, wd9, s2, t2, wp, s3, t3, *, residual,
         return mbconv_full_plain(x, we, s1, t1, wd9, s2, t2, wp, s3, t3,
                                  residual=residual, act_mid=act_mid,
                                  act_out=act_out)
-    tensors, tile_hw = kernel_args(x, we, s1, t1, wd9, s2, t2, wp, s3, t3,
-                                   mode="full")
-    outs = outputs("full", x, wd9.shape[1], wp.shape[1])
-    call("full", tensors, tile_hw, outs, residual=residual, act_mid=act_mid,
+    tensors, run = kernel_args(x, we, s1, t1, wd9, s2, t2, wp, s3, t3,
+                               mode="full")
+    outs = outputs("full", x, wd9.shape[1], wp.shape[1], run)
+    call("full", tensors, run, outs, residual=residual, act_mid=act_mid,
          act_out=act_out)
     full_launches += 1
     return outs[0]
@@ -324,9 +481,9 @@ def mbconv_stats(x, we, s1, t1, wd9, *, act_mid="relu6"):
     _check(x, we, s1, t1, wd9, act_mid=act_mid)
     if _on_cpu(x):
         return mbconv_stats_plain(x, we, s1, t1, wd9, act_mid=act_mid)
-    tensors, tile_hw = kernel_args(x, we, s1, t1, wd9, mode="stats")
-    outs = outputs("stats", x, wd9.shape[1], 0)
-    call("stats", tensors, tile_hw, outs, act_mid=act_mid)
+    tensors, run = kernel_args(x, we, s1, t1, wd9, mode="stats")
+    outs = outputs("stats", x, wd9.shape[1], 0, run)
+    call("stats", tensors, run, outs, act_mid=act_mid)
     stats_launches += 1
     return outs[1]
 
@@ -338,12 +495,11 @@ def mbconv_raw(x, we, s1, t1, wd9, s2, t2, wp, *, act_mid="relu6"):
     if _on_cpu(x):
         return mbconv_raw_plain(x, we, s1, t1, wd9, s2, t2, wp,
                                 act_mid=act_mid)
-    tensors, tile_hw = kernel_args(x, we, s1, t1, wd9, s2, t2, wp,
-                                   mode="raw")
-    outs = outputs("raw", x, wd9.shape[1], wp.shape[1])
-    call("raw", tensors, tile_hw, outs, act_mid=act_mid)
+    tensors, run = kernel_args(x, we, s1, t1, wd9, s2, t2, wp, mode="raw")
+    outs = outputs("raw", x, wd9.shape[1], wp.shape[1], run)
+    call("raw", tensors, run, outs, act_mid=act_mid)
     raw_launches += 1
-    return outs[0], outs[2]
+    return outs[0], outs[3]
 
 
 # ------------------------------------------------ the reference's wrappers

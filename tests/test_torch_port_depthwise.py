@@ -11,6 +11,14 @@ forward and both gradients through ``jax.vjp``, at the two cases of
 bf16 rounds the same float32 sums, one bf16 ulp (2^-8 relative) apart at
 most: 1e-2. The padding p > k - 1, which the reference kernel's stride-1 dx
 cannot take, is held to the JAX package's XLA depthwise conv.
+
+The kernels read the OIHW weight as it is (no relayout): an emulation of
+the tiled kernel's walk (channel c's taps at w[c*9 + t], each staged row
+feeding the output rows it belongs to, their sums kept apart) equals the
+plain version bit for bit in float32 and in bf16 (whose products are exact
+in float32) and the Pallas kernel in interpret mode within the tolerances
+above. Without autograd the wrapper's cast of the weight to x's type is
+made once per weight version; with autograd recording it is never cached.
 """
 
 import jax
@@ -22,7 +30,7 @@ import torch
 from convnet_tpu import ops as jops
 from convnet_tpu.ops.pallas.depthwise import depthwise_conv_pallas
 from convnet_tpu_torch.nn import Conv2d
-from convnet_tpu_torch.ops.kernels import depthwise_conv
+from convnet_tpu_torch.ops.kernels import _conv, _prepared, depthwise_conv
 
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -140,3 +148,100 @@ def test_wrapper_rejects_what_it_cannot_run():
         depthwise_conv.depthwise_conv2d(x, torch.zeros(16, 2, 3, 3), 1, 1)
     with pytest.raises(ValueError, match="stride"):
         depthwise_conv.depthwise_conv2d(x, w, 3, 1)
+
+
+def _tiled_walk(x, w, stride, padding):
+    """The tiled kernel's arithmetic: the padded x read row by row; each
+    staged row k feeds the output rows r with k = r*stride + di, whose sums
+    are kept apart and finished at di = 2; channel c's tap t read at
+    w.flatten()[c*9 + t], the OIHW weight as it is; the first tap
+    multiplied, the others multiplied and added, in float32."""
+    (ho, wo) = _conv.geometry(x.shape, (3, 3), stride, padding)[3]
+    xp = _conv.pad_hw(x.float(), (padding, padding))
+    flat = w.to(x.dtype).float().flatten()
+    c = x.shape[-1]
+    taps = [flat[torch.arange(c) * 9 + t] for t in range(9)]
+    out, acc = [None] * ho, {}
+    for k in range((ho - 1) * stride + 3):
+        for di in range(3):
+            if k < di or (k - di) % stride:
+                continue
+            r = (k - di) // stride
+            if r >= ho:
+                continue
+            for dj in range(3):
+                cols = xp[:, k, dj:dj + (wo - 1) * stride + 1:stride, :]
+                term = cols * taps[3 * di + dj]
+                acc[r] = term if di == dj == 0 else acc[r] + term
+            if di == 2:
+                out[r] = acc.pop(r)
+    return torch.stack(out, dim=1).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("c", [3, 17, 64])
+def test_oihw_weight_walk_matches_plain_and_pallas(c, stride, dtype):
+    x, w = _inputs((2, 11, 9, c), seed=c + stride)
+    xt = torch.from_numpy(x).to(TORCH[dtype])
+    wt = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+    got = _tiled_walk(xt, wt, stride, 1)
+    plain = depthwise_conv.depthwise_conv2d_plain(xt, wt, stride, 1)
+    assert torch.equal(got, plain)            # bit for bit, both types
+    ref = depthwise_conv_pallas(jnp.asarray(x, JNP[dtype]),
+                                jnp.asarray(w, JNP[dtype]), stride, 1,
+                                interpret=True)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=tol,
+                               atol=tol)
+
+
+def _launched(monkeypatch):
+    """Records the weight each kernel launch is handed, on meta tensors (so
+    the CUDA branch runs without a card) with ``_conv.launch`` stubbed."""
+    seen = []
+
+    def launch(fn, name, x, wt, kernel, stride, padding):
+        seen.append(wt)
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+    monkeypatch.setattr(depthwise_conv._conv, "launch", launch)
+    return seen
+
+
+def test_eval_weight_cast_is_made_once_per_version(monkeypatch):
+    """The kernels take the OIHW weight itself, in x's type: no relayout.
+    In eval (no autograd) the cast comes from ``_prepared``, once per
+    version of the weight."""
+    _prepared.clear()
+    seen = _launched(monkeypatch)
+    assert not hasattr(depthwise_conv, "kernel_weight")
+    x = torch.empty((2, 8, 8, 16), dtype=torch.bfloat16, device="meta")
+    w = torch.nn.Parameter(torch.empty((16, 1, 3, 3), device="meta"))
+    try:
+        with torch.no_grad():
+            depthwise_conv.depthwise_conv2d(x, w, 1, 1)
+            depthwise_conv.depthwise_conv2d(x, w, 2, 1)
+            w.add_(1)
+            depthwise_conv.depthwise_conv2d(x, w, 1, 1)
+        assert seen[0] is seen[1] and seen[2] is not seen[0]
+        for wt in seen:
+            assert wt.shape == (16, 1, 3, 3) and wt.is_contiguous()
+            assert wt.dtype == torch.bfloat16
+    finally:
+        _prepared.clear()
+
+
+def test_recording_autograd_never_caches_the_cast(monkeypatch):
+    """With autograd recording through the weight, the cast is made afresh
+    on every call, inside the graph, and nothing enters the cache."""
+    _prepared.clear()
+    seen = _launched(monkeypatch)
+    x = torch.empty((2, 8, 8, 16), dtype=torch.bfloat16, device="meta")
+    w = torch.nn.Parameter(torch.empty((16, 1, 3, 3), device="meta"))
+    depthwise_conv.depthwise_conv2d(x, w, 1, 1)
+    depthwise_conv.depthwise_conv2d(x, w, 1, 1)
+    assert seen[0] is not seen[1] and not _prepared._CACHE
+    assert all(wt.dtype == torch.bfloat16 and wt.shape == (16, 1, 3, 3)
+               for wt in seen)
