@@ -23,13 +23,15 @@ ResNet-50, ResNeXt-50 32x4d, MobileNet v1 and MobileNet-V2.
    Stats and Raw at 128; bf16 and float32), at ragged shapes, and for the
    convs' stride-1 input gradients, which run the same kernels; the fused
    1x1 kernel also at M above 2^23 rows; the Stats and Raw sums of two runs
-   must be bit-equal. Each fused 1x1, grouped, depthwise and MBConv record
-   names the kernel its C library picked (``variant``) and fails unless it
-   is the one the shape rule names: every bf16 shape the grouped route
+   must be bit-equal. Each fused 1x1, grouped, depthwise, MBConv and pool
+   backward record names the kernel its C library picked (``variant``) and
+   fails unless it is the one the shape rule names: every bf16 shape the grouped route
    admits runs on the tensor cores, every bf16 fused 1x1 shape with K and N
    multiples of 8 on the TMA + wgmma kernel, every 3x3 depthwise conv with
    whole 16-byte channel vectors on the tiled kernel, every bf16 MBConv
-   block with Cin and Cout multiples of 8 on the tensor-core kernel.
+   block with Cin and Cout multiples of 8 on the tensor-core kernel, every
+   3x3/s2/p1 pool backward with whole 16-byte channel vectors and aligned
+   dy on the tiled kernel.
    Kernel, plain version and the nearest library call (for MBConv the
    unfused chain of library calls) are timed with CUDA
    events, and the kernel alone (its launches replayed from a CUDA graph)
@@ -164,9 +166,21 @@ MODELS = {
                      launches(depthwise=4 + 13 + 13, mb_stats=13, mb_raw=13),
                      10),
 }
-POOL_RAGGED = [((2, 15, 13, 3), 3, 2, 1),   # odd H, W; C = 3: scalar path
-               ((2, 8, 8, 5), 2, 2, 0),     # non-overlapping windows
-               ((2, 9, 9, 17), 3, 1, 1)]    # stride 1: 9 windows a pixel
+# off the stems' path: (B, H, W, C), kernel, stride, padding, whether dy
+# starts at an unaligned offset
+POOL_RAGGED = [((2, 15, 13, 3), 3, 2, 1, False),   # odd H, W; C = 3: scalar
+               ((2, 8, 8, 5), 2, 2, 0, False),     # non-overlapping windows
+               ((2, 9, 9, 17), 3, 1, 1, False),    # stride 1: 9 windows a pixel
+               # the tiled backward's edges: odd H and W (the last residue
+               # row and column masked), Ho = 57 (not a multiple of the
+               # tile's rows), batch 1, C = 136 (17 bf16 or 34 float32
+               # vectors: an odd slab, two slabs), H = W = 2 (one window)
+               ((2, 15, 13, 64), 3, 2, 1, False),
+               ((2, 114, 114, 8), 3, 2, 1, False),
+               ((1, 9, 7, 16), 3, 2, 1, False),
+               ((2, 16, 16, 136), 3, 2, 1, False),
+               ((3, 2, 2, 8), 3, 2, 1, False),
+               ((2, 16, 16, 64), 3, 2, 1, True)]   # unaligned dy: per pixel
 # pool kernels vs plain versions: index and y exact (both pick the same
 # element); dx exact in float32 (the same float32 additions in the same
 # order), and in bf16 within 1e-2 relative-plus-absolute
@@ -843,22 +857,35 @@ def pool_bound(shape, k, s, p, dname, idx):
             for t in (fwd, bwd)]
 
 
+def pool_bwd_variant_expected(shape, k, s, p, dname, unaligned):
+    """The pool backward's shape rule for a fresh index: a 3x3 pool at
+    stride 2 and padding 1 with whole 16-byte channel vectors (8 bf16 or 4
+    float32 channels) and an aligned dy takes the tiled kernel, any other
+    the per-pixel one."""
+    vec = 8 if dname == "bf16" else 4
+    return "tiled" if (k, s, p) == (3, 2, 1) and shape[-1] % vec == 0 \
+        and not unaligned else "per_pixel"
+
+
 def check_max_pool(torch):
     """Phase 2 for the pool kernels: correctness at the stems' shapes
     (batch 128 and 1) and the ragged shapes, bf16 and float32, normal and
-    tie-heavy inputs; times at ResNet-50's stem at batch 128 in bf16, the
-    training step's shape and type. Returns {kernel name: summary}."""
+    tie-heavy inputs, and the backward's kernel against its rule; times at
+    both stems at batch 128 in bf16, the training step's shape and type.
+    Returns {kernel name: summary}, with ResNet-50's stem as the summary's
+    times and both stems under "shapes"."""
     import torch.nn.functional as F
     from convnet_tpu_torch.ops.kernels import max_pool as mp
     dtypes = {"bf16": torch.bfloat16, "float32": torch.float32}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    cases = [((b, h, w, c), k, s, p, b) for (h, w, c), k, s, p in STEM_POOLS
-             for b in (TRAIN_BATCH, 1)]
-    cases += [(shape, k_, s_, p_, None) for shape, k_, s_, p_ in POOL_RAGGED]
-    out = {name: {"max_abs_err": 0.0} for name in ("max_pool2d_fwd_idx",
-                                                   "max_pool2d_bwd")}
+    cases = [((b, h, w, c), k, s, p, False, b)
+             for (h, w, c), k, s, p in STEM_POOLS for b in (TRAIN_BATCH, 1)]
+    cases += [(shape, k_, s_, p_, unaligned, None)
+              for shape, k_, s_, p_, unaligned in POOL_RAGGED]
+    out = {name: {"max_abs_err": 0.0, "shapes": [], "variants": {}}
+           for name in ("max_pool2d_fwd_idx", "max_pool2d_bwd")}
     failures = []
-    for shape, k_, s_, p_, batch in cases:
+    for shape, k_, s_, p_, unaligned, batch in cases:
         for dname, dtype in dtypes.items():
             for inputs in ("normal", "ties"):
                 if inputs == "ties":
@@ -873,6 +900,11 @@ def check_max_pool(torch):
                 y_ref, idx_ref = mp.max_pool2d_fwd_idx_plain(x, k_, s_, p_)
                 dy = torch.randn(y.shape, generator=gen,
                                  device="cuda").to(dtype)
+                if unaligned:   # the same values one element into a buffer
+                    buf = torch.empty(dy.numel() + 1, dtype=dtype,
+                                      device="cuda")
+                    buf[1:].copy_(dy.reshape(-1))
+                    dy = buf[1:].view(dy.shape)
                 dx = mp.max_pool2d_bwd(dy, idx, shape, k_, s_, p_)
                 dx_ref = mp.max_pool2d_bwd_plain(dy, idx_ref, shape, k_, s_,
                                                  p_)
@@ -881,9 +913,13 @@ def check_max_pool(torch):
                 diff = (dx.float() - dx_ref.float()).abs()
                 dx_err = diff.max().item()
                 tol = POOL_DX_TOL[dname]
+                kind = mp.bwd_variant(dy, idx, k_, s_, p_)
+                want = pool_bwd_variant_expected(shape, k_, s_, p_, dname,
+                                                 unaligned)
                 rec = {"check": "max_pool", "dtype": dname, "batch": batch,
                        "shape": list(shape), "k": k_, "s": s_, "p": p_,
-                       "inputs": inputs,
+                       "inputs": inputs, "dy_unaligned": unaligned,
+                       "bwd_variant": kind, "bwd_variant_expected": want,
                        "idx_equal": bool(torch.equal(idx, idx_ref)),
                        "y_equal": bool(torch.equal(y, y_ref)
                                        and torch.equal(y_eval, y_ref)
@@ -895,25 +931,35 @@ def check_max_pool(torch):
                     fwd, bwd = out["max_pool2d_fwd_idx"], out["max_pool2d_bwd"]
                     fwd["max_abs_err"] = max(fwd["max_abs_err"], y_err)
                     bwd["max_abs_err"] = max(bwd["max_abs_err"], dx_err)
+                    bwd["variants"].setdefault(dname, set()).add(kind)
                 if batch == TRAIN_BATCH and dname == "bf16" \
-                        and inputs == "normal" and shape[1:] == \
-                        STEM_POOLS[0][0]:
+                        and inputs == "normal":
                     rec.update(time_pool(torch, F, mp, x, dy, idx, k_, s_,
                                          p_))
                     for name, (ms, by) in zip(
                             ("max_pool2d_fwd_idx", "max_pool2d_bwd"),
                             pool_bound(shape, k_, s_, p_, dname, idx)):
-                        out[name].update(ms=rec[f"{name}_ms"],
-                                         kernel_ms=rec[f"{name}_kernel_ms"],
-                                         plain_ms=rec[f"{name}_plain_ms"],
-                                         library_ms=rec[f"{name}_library_ms"],
-                                         bound_ms=ms, bound_by=by)
+                        timed = {"shape": list(shape),
+                                 "ms": rec[f"{name}_ms"],
+                                 "kernel_ms": rec[f"{name}_kernel_ms"],
+                                 "plain_ms": rec[f"{name}_plain_ms"],
+                                 "library_ms": rec[f"{name}_library_ms"],
+                                 "bound_ms": ms, "bound_by": by}
+                        out[name]["shapes"].append(timed)
+                        if shape[1:] == STEM_POOLS[0][0]:
+                            out[name].update(
+                                {key: v for key, v in timed.items()
+                                 if key != "shape"})
                 emit(rec)
-                if not (rec["idx_equal"] and rec["y_equal"] and rec["dx_ok"]):
+                if not (rec["idx_equal"] and rec["y_equal"] and rec["dx_ok"]
+                        and kind == want):
                     failures.append(rec)
     if failures:
         raise RuntimeError(f"the pool kernels disagree with their plain "
-                           f"versions in {len(failures)} case(s)")
+                           f"versions or their rule in {len(failures)} "
+                           f"case(s)")
+    out["max_pool2d_bwd"]["variants"] = {
+        d: sorted(v) for d, v in out["max_pool2d_bwd"]["variants"].items()}
     return out
 
 
@@ -1385,12 +1431,15 @@ def main():
              ["convnet_tpu/ops/pallas/pool_bwd.py:120"],
              "aten.max_pool2d_with_indices_backward, channels-last")):
         pr = pool[name]
+        more = ({"variants_at_path_shapes": pr["variants"]}
+                if name == "max_pool2d_bwd" else {})
         rows.append(row(name, "max_pool.cu", replaces, pr["ms"],
                         pr["kernel_ms"], pr["plain_ms"], pr["bound_ms"],
                         pr["bound_by"], pr["library_ms"], library,
                         pr["max_abs_err"],
                         f"one call at the ResNet-50 stem, batch "
-                        f"{TRAIN_BATCH}, bf16", also_replaces=also))
+                        f"{TRAIN_BATCH}, bf16; both stems under shapes",
+                        also_replaces=also, shapes=pr["shapes"], **more))
     for name, source, replaces, res, model in (
             ("grouped_conv2d", "grouped_conv.cu", "grouped.py:83", grouped,
              "ResNeXt-50 32x4d"),

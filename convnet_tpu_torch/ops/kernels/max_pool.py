@@ -13,6 +13,13 @@ On a CUDA tensor the wrappers launch the kernels of ``csrc/max_pool.cu`` or
 raise; on a CPU tensor they run the plain versions below, which are also the
 kernels' oracle in the on-card checks. ``fwd_launches`` and ``bwd_launches``
 count kernel launches only.
+
+The backward has two kernels, picked by a stated shape rule
+(:func:`bwd_variant`): a 3x3 pool at stride 2 and padding 1 (the ResNet
+stems) with C a multiple of the 16-byte vector (8 bf16 or 4 float32
+channels) and aligned dy and index runs the tiled kernel, a residue-class
+gather in output geometry (:func:`class_taps`, mirrored in plain PyTorch by
+:func:`max_pool2d_bwd_classes`); every other pool the per-pixel kernel.
 """
 
 from __future__ import annotations
@@ -102,15 +109,96 @@ def max_pool2d_bwd_plain(dy, idx, x_shape, kernel, stride, padding):
     return dxp[:, ph:ph + h, pw:pw + w, :].to(dy.dtype).contiguous()
 
 
+def class_taps(r, p, k, s):
+    """The taps that feed residue class r of one axis: input coordinate
+    i = s a + r is covered by window a + u through tap d for every d = r + p
+    (mod s), u = (r + p - d) / s. Returns [(d, u), ...] in ascending d; the
+    tiled kernel bakes this list in for (k, s, p) = (3, 2, 1):
+    residue 0 [(1, 0)], residue 1 [(0, 1), (2, 0)]."""
+    return [(d, (r + p - d) // s) for d in range(k) if (r + p - d) % s == 0]
+
+
+def _shifted(m, du, dv, n_h, n_w):
+    """out[:, a, b] = m[:, a + du, b + dv] for a < n_h, b < n_w; zero where
+    that window lies outside m."""
+    out = m.new_zeros((m.shape[0], n_h, n_w, m.shape[3]))
+    h, w = m.shape[1], m.shape[2]
+    a0, a1 = max(0, -du), min(n_h, h - du)
+    b0, b1 = max(0, -dv), min(n_w, w - dv)
+    if a0 < a1 and b0 < b1:
+        out[:, a0:a1, b0:b1] = m[:, a0 + du:a1 + du, b0 + dv:b1 + dv]
+    return out
+
+
+def max_pool2d_bwd_classes(dy, idx, x_shape, kernel, stride, padding):
+    """The backward as the tiled kernel computes it, in plain PyTorch: dx
+    assembled class by class. Residue class (r_h, r_w) of dx, at window
+    geometry (ceil(H/s_h), ceil(W/s_w)), is the float32 sum, in ascending
+    tap order t = di kw + dj, of the masked dy of tap t shifted by the
+    class's window shift (u, v); each class is placed at its strided pixels
+    and dx cast to dy's type. Equal bit for bit to
+    :func:`max_pool2d_bwd_plain`: the same float32 terms in the same order
+    at every pixel."""
+    (kh, kw), (sh, sw), (ph, pw), _ = _geometry(x_shape, kernel, stride,
+                                                padding)
+    b, h, w, c = x_shape
+    n_h, n_w = -(-h // sh), -(-w // sw)
+    dy32 = dy.float()
+    zero = dy32.new_zeros(())
+    dx = torch.empty((b, h, w, c), dtype=torch.float32, device=dy.device)
+    for rh in range(sh):
+        for rw in range(sw):
+            plane = dy32.new_zeros((b, n_h, n_w, c))
+            for di, u in class_taps(rh, ph, kh, sh):
+                for dj, v in class_taps(rw, pw, kw, sw):
+                    masked = torch.where(idx == di * kw + dj, dy32, zero)
+                    plane += _shifted(masked, u, v, n_h, n_w)
+            rows, cols = -(-(h - rh) // sh), -(-(w - rw) // sw)
+            dx[:, rh::sh, rw::sw] = plane[:, :rows, :cols]
+    return dx.to(dy.dtype)
+
+
+def bwd_rule(c, kernel, stride, padding, dtype, dy_ptr, idx_ptr):
+    """The backward kernel the shape rule names, "tiled" or "per_pixel":
+    a 3x3 pool at stride 2 and padding 1 both ways, float32 or bf16, C a
+    multiple of the 16-byte vector, dy 16-byte and idx vector aligned (the
+    C library's ``bwd_tiled_ok``)."""
+    pool = (*_pair(kernel), *_pair(stride), *_pair(padding))
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    tiled = (dtype in _DTYPES and pool == (3, 3, 2, 2, 1, 1) and c % vec == 0
+             and dy_ptr % 16 == 0 and idx_ptr % vec == 0)
+    return "tiled" if tiled else "per_pixel"
+
+
+def bwd_variant(dy, idx, kernel, stride, padding):
+    """The backward kernel that runs for dy and idx: on CUDA tensors the C
+    library's answer, on CPU tensors (which run the plain version) the
+    rule's for a CUDA tensor of the same shape, type and alignment."""
+    if not dy.is_cuda:
+        return bwd_rule(dy.shape[-1], kernel, stride, padding, dy.dtype,
+                        dy.data_ptr(), idx.data_ptr())
+    tiled = _library().ctt_max_pool2d_bwd_variant(
+        dy.shape[-1], *_pair(kernel), *_pair(stride), *_pair(padding),
+        _DTYPES.get(dy.dtype, -1), dy.data_ptr(), idx.data_ptr())
+    return "tiled" if tiled else "per_pixel"
+
+
 @functools.cache
-def _kernels():
+def _library():
     lib = _build.library("max_pool")
     args = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
-    fns = lib.ctt_max_pool2d_fwd_idx, lib.ctt_max_pool2d_bwd
-    for fn in fns:
+    for fn in (lib.ctt_max_pool2d_fwd_idx, lib.ctt_max_pool2d_bwd):
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    return fns
+    fn = lib.ctt_max_pool2d_bwd_variant
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _kernels():
+    lib = _library()
+    return lib.ctt_max_pool2d_fwd_idx, lib.ctt_max_pool2d_bwd
 
 
 def _check_cuda(name, t, dtype=None):
