@@ -10,7 +10,8 @@ Without a card, or without the ``convnet_tpu_torch`` package beside it, it
 exits non-zero before printing any result. It imports nothing of JAX.
 
 Four models, each at full width, 224x224, weights drawn from a seed:
-ResNet-50, ResNeXt-50 32x4d, MobileNet v1 and MobileNet-V2.
+ResNet-50, ResNeXt-50 32x4d, MobileNet v1 and MobileNet-V2; and two more
+training paths of ResNet-50 (large-batch LARS, batch augmentation).
 
 1. card: name and power limit; the CUDA kernels are built with nvcc, one
    process per source, all started together.
@@ -49,7 +50,16 @@ ResNet-50, ResNeXt-50 32x4d, MobileNet v1 and MobileNet-V2.
    against the same step on the CPU. bf16 steps at batch 128 on one random
    batch (20 for ResNet-50, 10 for the others), counted and timed; two more
    under torch.profiler, whose device time is broken down by kernel; and
-   one ``validate``, counted, then timed twice.
+   one ``validate``, counted, then timed twice. The float32 step against
+   the CPU also for the two paths below (ResNet-50 at CHECK_BATCH under
+   ``large_lars`` in 2 chunks; CHECK_BATCH images in 4 copies each with
+   mixup and the gradient-norm scale measured).
+   4g. large-batch LARS: ResNet-50's "large_lars" regime at batch 4096 in
+   32 chunks of 128, bf16, 3 steps: the lr each step used, 32 pool launches
+   each way a step, the peak memory against a batch-128 step's.
+   4h. batch augmentation: ResNet-50, 64 images in 4 copies each, mixup,
+   the gradient-norm scale, the weights' EMA, bf16, 4 steps; ``validate``
+   with averaged outputs, ``calibrate_bn`` on the EMA weights, ``validate``.
 5. summary: one ``{"kernels": [...]}`` line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -197,6 +207,20 @@ POOL_DX_TOL = {"bf16": 1e-2, "float32": 0.0}
 # gradient, so its update is rounding noise.
 STEP_TOL = {"loss": 1e-4, "stats": 1e-4, "update_norm": 5e-2,
             "update_norm_per_tensor": 1e-1, "tensor_floor": 1e-4}
+# phase 4g: ResNet-50's "large_lars" regime (BASELINE.json's 4k-batch
+# config) in chunks of 128, the batch-128 step of phase 4b; a step's peak
+# memory less the batch's two copies must stay within this factor of that
+# step's (an unchunked 4096 step would need about 32 times its activations)
+LARGE_BATCH, LARGE_BATCH_CHUNKS, LARGE_BATCH_STEPS = 4096, 32, 3
+LARGE_BATCH_PEAK_TOL = 1.25
+# phase 4h: the README's batch-augmentation run (-b 64 --duplicates 4
+# --mixup 0.2 --label-smoothing 0.1, averaged outputs) with the weights' EMA,
+# and the gradient-norm scale measured every 2 steps (the README's 100 would
+# not measure twice in BATCH_AUG_STEPS)
+BATCH_AUG = {"duplicates": 4, "adapt_grad_norm": 2, "mixup_alpha": 0.2,
+             "label_smoothing": 0.1, "average_output": True,
+             "model_ema": 0.999}
+BATCH_AUG_IMAGES, BATCH_AUG_STEPS = 64, 4
 
 T0 = time.perf_counter()
 
@@ -1025,27 +1049,48 @@ def expect_counts(what, got, want):
         raise RuntimeError(f"{what}: kernel launches {got}, expected {want}")
 
 
-def make_trainer(torch, tag, dtype, device, **overrides):
+def make_trainer(torch, tag, dtype, device, features=None, **overrides):
+    """The port's Trainer for model ``tag`` with weights from SEED;
+    ``features`` are more ``TrainerConfig`` fields, ``overrides`` change the
+    model's config (its regime, for instance)."""
     from convnet_tpu_torch import models
     from convnet_tpu_torch.regimes.optim import OptimRegime
     from convnet_tpu_torch.train.trainer import Trainer, TrainerConfig
     name, config = MODELS[tag][:2]
     model = models.build(name, **config, **overrides)
     tr = Trainer(model, OptimRegime(model.regime), 1000,
-                 TrainerConfig(dtype=dtype), device=device, seed=SEED)
+                 TrainerConfig(dtype=dtype, **(features or {})),
+                 device=device, seed=SEED)
     tr.initialize()
     return tr
 
 
-def check_step_against_cpu(torch, tag, **overrides):
+def augmented_copies(x, duplicates):
+    """Each image of ``x`` (NHWC) repeated ``duplicates`` times
+    contiguously, as the JAX package's loaders pack batch augmentation's
+    copies, and every second copy flipped left to right, as the loader's
+    random flip would: so the copies differ."""
+    x = np.repeat(x, duplicates, 0)
+    x[1::2] = x[1::2, :, ::-1]
+    return x
+
+
+def check_step_against_cpu(torch, tag, features=None, duplicates=1,
+                           **overrides):
     """Phase 4a: one float32 step on the card and on the CPU from the same
-    weights (seed) and batch; ``overrides`` change the model's config."""
+    weights (seed) and batch; ``features`` are ``TrainerConfig`` fields
+    (mixup draws its λ on the host from the seed, so both devices mix
+    alike), ``duplicates`` packs that many copies of each of the
+    ``CHECK_BATCH`` images, and ``overrides`` change the model's config."""
     rng = np.random.default_rng(SEED + 1)
     x = rng.standard_normal((CHECK_BATCH, 224, 224, 3)).astype(np.float32)
     y = rng.integers(0, 1000, CHECK_BATCH)
+    if duplicates > 1:
+        x, y = augmented_copies(x, duplicates), np.repeat(y, duplicates)
     res = {}
     for where in ("cpu", None):
-        tr = make_trainer(torch, tag, "float32", where, **overrides)
+        tr = make_trainer(torch, tag, "float32", where, features,
+                          **overrides)
         p0 = {n: q.detach().cpu().clone()
               for n, q in tr.model.named_parameters()}
         loss = float(tr.train_step(x, y)["loss"])
@@ -1073,7 +1118,8 @@ def check_step_against_cpu(torch, tag, **overrides):
     stat_err = max(((s_gpu[n] - s_cpu[n]).abs()
                     / (1 + s_cpu[n].abs())).max().item() for n in s_cpu)
     rec = {"check": "train_step_card_vs_cpu", "model": tag,
-           "dtype": "float32", "batch": CHECK_BATCH, "loss_cpu": l_cpu,
+           "features": features or {}, "model_overrides": overrides,
+           "dtype": "float32", "batch": len(x), "loss_cpu": l_cpu,
            "loss_card": l_gpu, "loss_rel_err": loss_err,
            "update_norm_rel_err": total, "update_worst_tensor": worst,
            "update_worst_tensor_norm_rel_err": per_tensor[worst],
@@ -1210,7 +1256,193 @@ def train(torch, card, k, tag):
     log(f"{tag} validate: {val}")
     del tr
     torch.cuda.empty_cache()
-    return add_counts(train_counts, val_counts)
+    return add_counts(train_counts, val_counts), peak
+
+
+def step_timed(torch, tr, x, y):
+    """One training step, its metrics, its host-clock seconds (closed by the
+    read of the loss) and its device ms (CUDA events recorded before and
+    after it on the current stream)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    m = tr.train_step(x, y)
+    end.record()
+    m["loss"] = float(m["loss"])
+    host_s = time.perf_counter() - t
+    end.synchronize()
+    m["device_ms"] = start.elapsed_time(end)
+    return m, host_s
+
+
+def train_large_lars(torch, card, k, peak_128):
+    """Phase 4g: ResNet-50's "large_lars" regime (LARS, its polynomial lr
+    with a 5-epoch warm-up) at batch 4096 in 32 chunks of 128, bf16, on one
+    fixed random batch made on the card. Checks: finite losses; each step's
+    lr is the regime's; 32 pool forwards and backwards a step; the peak
+    memory less the batch's two copies (float32 and bf16) within
+    LARGE_BATCH_PEAK_TOL of a batch-128 step's peak (``peak_128``). Returns
+    the launch counts."""
+    from convnet_tpu_torch.regimes import schedules
+    per_step = {n: v * LARGE_BATCH_CHUNKS
+                for n, v in MODELS["resnet50"][3].items()}
+    tr = make_trainer(torch, "resnet50", "bf16", None,
+                      {"chunk_batch": LARGE_BATCH_CHUNKS,
+                       "label_smoothing": 0.1},
+                      regime="large_lars", batch_size=LARGE_BATCH)
+    steps_per_epoch = 1281167 // LARGE_BATCH
+    lr_at = schedules.polynomial_lr(7.4 * LARGE_BATCH / 4096,
+                                    90 * steps_per_epoch, power=2.0,
+                                    warmup_steps=5 * steps_per_epoch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    x = torch.randn((LARGE_BATCH, 224, 224, 3), generator=gen,
+                    device="cuda")
+    y = torch.randint(0, 1000, (LARGE_BATCH,), generator=gen, device="cuda")
+    batch_bytes = x.numel() * (4 + 2)        # float32 and its bf16 copy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(k)
+    losses, lrs, times, device_ms = [], [], [], []
+    for i in range(LARGE_BATCH_STEPS):
+        tr.optim.update(tr.training_steps / steps_per_epoch,
+                        tr.training_steps)
+        before = counts(k)
+        m, dt = step_timed(torch, tr, x, y)
+        step_counts = {n: v - before[n] for n, v in counts(k).items()}
+        expect_counts(f"resnet50 large_lars step {i}", step_counts, per_step)
+        losses.append(m["loss"])
+        lrs.append(m["lr"])
+        times.append(dt)
+        device_ms.append(m["device_ms"])
+        if m["lr"] != lr_at(0, i) or abs(m["lr"] - 7.4 * (i + 1) / 1560) \
+                > 1e-12:
+            raise RuntimeError(f"large_lars step {i}: lr {m['lr']}, the "
+                               f"regime's {lr_at(0, i)}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"resnet50 large_lars losses {losses}, lr {lrs}, peak {peak}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"large_lars: non-finite loss: {losses}")
+    if peak - batch_bytes > LARGE_BATCH_PEAK_TOL * peak_128:
+        raise RuntimeError(f"large_lars: peak {peak} B less the batch's "
+                           f"{batch_bytes} B is over {LARGE_BATCH_PEAK_TOL}"
+                           f" x a batch-128 step's {peak_128} B")
+    p50 = statistics.median(times[1:])
+    emit({"train": "resnet50_large_lars_bf16_224", "card": card,
+          "batch": LARGE_BATCH, "chunk_batch": LARGE_BATCH_CHUNKS,
+          "steps": LARGE_BATCH_STEPS, "losses": losses, "lr": lrs,
+          "step_ms": [t * 1e3 for t in times], "step_p50_ms": p50 * 1e3,
+          "images_per_s": LARGE_BATCH / p50, "device_ms": device_ms,
+          "max_memory_allocated_bytes": peak, "batch_bytes": batch_bytes,
+          "batch128_step_peak_bytes": peak_128,
+          "peak_less_batch_over_batch128_peak": (peak - batch_bytes)
+          / peak_128,
+          "note": "host clock around train_step, closed by a read of the "
+                  f"loss; p50 over steps 2-{LARGE_BATCH_STEPS}; device_ms: "
+                  "CUDA events before and after each step"})
+    counted = counts(k)
+    del tr, x, y
+    torch.cuda.empty_cache()
+    return counted
+
+
+def train_batch_augmentation(torch, card, k):
+    """Phase 4h: batch augmentation on ResNet-50 ("normal" regime, bf16):
+    64 images a step, each in BATCH_AUG["duplicates"] copies
+    (``augmented_copies``),
+    mixup, label smoothing, the gradient-norm scale measured every
+    BATCH_AUG["adapt_grad_norm"] steps, the weights' EMA; then ``validate``
+    with the copies' logits averaged, ``calibrate_bn`` over 2 batches on the
+    EMA weights and ``validate`` again. Checks: finite losses; the scale
+    finite, positive and changed only at measuring steps; the BN statistics
+    after a measuring step equal those right after its main forward (the
+    measuring forward's update undone); launch counts; finite validate
+    losses. Returns the launch counts."""
+    per_step = MODELS["resnet50"][3]
+    per_forward = MODELS["resnet50"][2]
+    d = BATCH_AUG["duplicates"]
+    tr = make_trainer(torch, "resnet50", "bf16", None, BATCH_AUG)
+    rng = np.random.default_rng(SEED + 4)
+    x = torch.from_numpy(augmented_copies(rng.standard_normal(
+        (BATCH_AUG_IMAGES, 224, 224, 3)).astype(np.float32), d)).cuda()
+    y = torch.from_numpy(np.repeat(rng.integers(0, 1000, BATCH_AUG_IMAGES),
+                                   d)).cuda()
+    buffers = [b for _, b in tr.model.named_buffers()]
+    after_forward = []
+    hook = tr.model.register_forward_hook(
+        lambda *_: after_forward.append([b.clone() for b in buffers]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(k)
+    losses, scales, times, device_ms = [], [], [], []
+    for i in range(BATCH_AUG_STEPS):
+        measuring = tr.opt_state["step"] % BATCH_AUG["adapt_grad_norm"] == 0
+        scale_before = float(tr.opt_state["agn_scale"])
+        after_forward.clear()
+        before = counts(k)
+        m, dt = step_timed(torch, tr, x, y)
+        step_counts = {n: v - before[n] for n, v in counts(k).items()}
+        want = {n: v * (2 if measuring else 1) for n, v in per_step.items()}
+        expect_counts(f"resnet50 batch augmentation step {i} (measuring: "
+                      f"{measuring})", step_counts, want)
+        scale = float(tr.opt_state["agn_scale"])
+        losses.append(m["loss"])
+        scales.append(scale)
+        times.append(dt)
+        device_ms.append(m["device_ms"])
+        if not (np.isfinite(scale) and scale > 0):
+            raise RuntimeError(f"batch augmentation step {i}: scale {scale}")
+        if not measuring and scale != scale_before:
+            raise RuntimeError(f"batch augmentation step {i}: the scale "
+                               f"moved from {scale_before} to {scale} at a "
+                               f"step that does not measure it")
+        if measuring:
+            main, extra = after_forward
+            moved = any(not torch.equal(a, b) for a, b in zip(main, extra))
+            kept = all(torch.equal(a, b) for a, b in zip(main, buffers))
+            if not (moved and kept):
+                raise RuntimeError(f"batch augmentation step {i}: the "
+                                   f"measuring forward moved the BN "
+                                   f"statistics: {moved}, and they were "
+                                   f"restored: {kept}")
+    hook.remove()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"resnet50 batch augmentation losses {losses}, scales {scales}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"batch augmentation: non-finite loss: {losses}")
+    train_counts = counts(k)
+
+    reset_counts(k)
+    val = tr.validate([(x, y)])
+    tr.model.load_state_dict(tr.ema_state_dict())
+    used = tr.calibrate_bn([(x, y), (x.flip(0), y)], num_steps=2)
+    val_ema = tr.validate([(x, y)])
+    want = {n: 2 * v for n, v in per_forward.items()}
+    want["max_pool2d_fwd_idx"] += 2     # calibrate_bn's training forwards
+    expect_counts("resnet50 validate, calibrate_bn (2 batches), validate",
+                  counts(k), want)
+    log(f"resnet50 batch augmentation validate {val}; after calibrate_bn "
+        f"({used} batches) on the EMA weights {val_ema}")
+    if used != 2 or not (np.isfinite(val["loss"])
+                         and np.isfinite(val_ema["loss"])):
+        raise RuntimeError(f"batch augmentation: validate {val}, "
+                           f"{val_ema}, calibrate_bn used {used} batches")
+    p50 = statistics.median(times[1:])
+    emit({"train": "resnet50_batch_augmentation_bf16_224", "card": card,
+          "images": BATCH_AUG_IMAGES, "batch": len(x), "features": BATCH_AUG,
+          "steps": BATCH_AUG_STEPS, "losses": losses, "agn_scale": scales,
+          "step_ms": [t * 1e3 for t in times], "step_p50_ms": p50 * 1e3,
+          "images_per_s": len(x) / p50, "device_ms": device_ms,
+          "max_memory_allocated_bytes": peak,
+          "validate": val, "validate_ema_calibrated": val_ema,
+          "note": "host clock around train_step, closed by a read of the "
+                  f"loss; p50 over steps 2-{BATCH_AUG_STEPS}, measuring and "
+                  "cached steps alike; device_ms: CUDA events before and "
+                  "after each step"})
+    counted = add_counts(train_counts, counts(k))
+    del tr, x, y
+    torch.cuda.empty_cache()
+    return counted
 
 
 def kernel_launches(torch, fn):
@@ -1384,27 +1616,48 @@ def main():
     for tag in ("resnet50", "mobilenet_v1"):
         check_step_against_cpu(torch, tag)
     check_step_against_cpu(torch, "mobilenet_v2", dropout=0.0)
+    # the two paths of phases 4g and 4h, in float32 at CHECK_BATCH
+    check_step_against_cpu(torch, "resnet50", {"chunk_batch": 2},
+                           regime="large_lars", batch_size=LARGE_BATCH)
+    check_step_against_cpu(torch, "resnet50",
+                           {**BATCH_AUG, "adapt_grad_norm": 1},
+                           duplicates=BATCH_AUG["duplicates"])
     train_counts = launches()
+    peaks = {}
     for tag in MODELS:
-        train_counts = add_counts(train_counts, train(torch, card, k, tag))
+        counted, peaks[tag] = train(torch, card, k, tag)
+        train_counts = add_counts(train_counts, counted)
     torch.cuda.synchronize()
     seconds["train"] = time.perf_counter() - t
+
+    # -- 4g, 4h. the large-batch LARS and batch-augmentation paths
+    t = time.perf_counter()
+    path_counts = {"large_batch_lars": train_large_lars(
+        torch, card, k, peaks["resnet50"])}
+    seconds["large_batch_lars"] = time.perf_counter() - t
+    t = time.perf_counter()
+    path_counts["batch_augmentation"] = train_batch_augmentation(
+        torch, card, k)
+    seconds["batch_augmentation"] = time.perf_counter() - t
     seconds["total"] = time.perf_counter() - t0
     emit({"seconds_by_phase": seconds})
 
     # -- 5. summary
     # every row: ms, back-to-back wrapper calls timed with CUDA events (the
     # wrapper's weight casts and copies included); kernel_ms, the kernel
-    # alone (its launches replayed from a CUDA graph); launches, the serving
-    # and the training runs together
+    # alone (its launches replayed from a CUDA graph); launches, the serving,
+    # the training, the large-batch LARS and the batch-augmentation runs
+    # together
+    by_path = {"serve": serve_counts, "train": train_counts, **path_counts}
+
     def row(name, source, replaces, ms, kernel_ms, plain_ms, bound_ms,
             bound_by, library_ms, library_call, max_err, times_are, **more):
         return {"name": name, "route": "cuda",
                 "source": f"convnet_tpu_torch/csrc/{source}",
                 "replaces": f"convnet_tpu/ops/pallas/{replaces}",
-                "launches": serve_counts[name] + train_counts[name],
-                "launches_by_path": {"serve": serve_counts[name],
-                                     "train": train_counts[name]},
+                "launches": sum(c[name] for c in by_path.values()),
+                "launches_by_path": {path: c[name]
+                                     for path, c in by_path.items()},
                 "max_abs_err": max_err, "ms": ms, "kernel_ms": kernel_ms,
                 "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,

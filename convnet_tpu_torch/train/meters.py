@@ -1,8 +1,11 @@
-"""Meters and top-k counts (counterpart of convnet_tpu/train/meters.py:17-34,
-64-106)."""
+"""Meters and top-k counts (counterpart of convnet_tpu/train/meters.py:17-106).
+"""
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 
@@ -26,6 +29,33 @@ class AverageMeter:
         self.avg = self.sum / max(self.count, 1)
 
 
+class OnlineMeter:
+    """Running mean and variance (Welford)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.count = 0
+        self.mean = 0.0
+        self._m2 = 0.0
+
+    def update(self, val):
+        val = float(val)
+        self.count += 1
+        delta = val - self.mean
+        self.mean += delta / self.count
+        self._m2 += delta * (val - self.mean)
+
+    @property
+    def var(self):
+        return self._m2 / max(self.count - 1, 1)
+
+    @property
+    def std(self):
+        return math.sqrt(self.var)
+
+
 def correct_topk(logits, target, topk=(1,)):
     """On the device: the number of correct predictions for each k, as
     float32 scalars. ``target`` may be soft (its argmax is used)."""
@@ -34,6 +64,18 @@ def correct_topk(logits, target, topk=(1,)):
     _, top = torch.topk(logits.float(), max(topk), dim=-1)
     correct = top == target[..., None]
     return tuple(correct[..., :k].sum().float() for k in topk)
+
+
+def accuracy(output, target, topk=(1,)):
+    """On the host: top-k accuracy in percent of array-likes ``output``
+    (B, classes) and ``target`` (labels, or soft targets: their argmax)."""
+    output = np.asarray(output)
+    target = np.asarray(target)
+    if target.ndim == output.ndim:
+        target = target.argmax(-1)
+    pred = np.argsort(-output, axis=-1)[:, :max(topk)]
+    correct = pred == target[:, None]
+    return [100.0 * correct[:, :k].sum() / target.shape[0] for k in topk]
 
 
 class AccuracyMeter:

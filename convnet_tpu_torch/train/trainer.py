@@ -1,21 +1,26 @@
-"""Trainer: the training step, the epoch loop and validation (counterpart of
-convnet_tpu/train/trainer.py:58-440, 613-760).
+"""Trainer: the training step, the epoch loop, validation and BN calibration
+(counterpart of convnet_tpu/train/trainer.py:58-440, 613-826).
 
 The model is an ``nn.Module`` that holds its float32 parameters and BatchNorm
 statistics. One step casts the batch to the compute dtype (each layer casts
 its parameters at use, so there is no ``torch.autocast``, whose casting rules
-differ from the JAX policy), runs the forward in training mode, scales the
-cross-entropy by ``loss_scale``, lets autograd compute the gradients, unscales
-them, clips them by their global norm and applies the regime's optimizer
-step (SGD, NesterovSGD or RMSprop). Dropout draws its masks from one
-``torch.Generator`` on the model's device, seeded from ``seed``.
+differ from the JAX policy), mixes it (mixup or cutmix, on the whole batch,
+λ drawn on the host), runs the forward in training mode one micro-batch at a
+time (``chunk_batch``: each chunk's scaled loss is back-propagated before the
+next chunk's forward, so one chunk's activations are alive at a time and the
+gradients add up in ``.grad``), unscales the gradients, rescales them to a
+single duplicate's norm (``duplicates`` with ``adapt_grad_norm``), clips them
+by their global norm, applies the regime's optimizer step, renormalises the
+weights under a BoundedWeightNorm regime and updates the weights' EMA
+(``model_ema``). Dropout draws its masks from one ``torch.Generator`` on the
+model's device, seeded from ``seed``.
 
 ``grad_clip`` and ``loss_scale`` come from the optimizer regime where it sets
 them, else from ``TrainerConfig``. (The JAX trainer reads them from the
 regime only, so its config fields have no effect there.)
 
-Not ported yet (ROADMAP.md): mixup/cutmix, ``chunk_batch``, duplicates and
-``adapt_grad_norm``, model EMA, ``calibrate_bn``, meshes, sync-BN, ZeRO and
+Not ported yet (ROADMAP.md): the telemetry watcher and ``data_time``,
+mid-epoch resume, meshes, sync-BN, ZeRO, the low-precision all-reduce and
 the flattened optimizer update.
 """
 
@@ -33,12 +38,15 @@ import torch
 from convnet_tpu_torch.core.device import resolve_device
 from convnet_tpu_torch.core.dtypes import get_policy
 from convnet_tpu_torch.core.module import init_parameters
-from convnet_tpu_torch.nn import Dropout
+from convnet_tpu_torch.nn import BatchNorm2d, Dropout
 from convnet_tpu_torch.regimes.optim import (OptimRegime, clip_by_global_norm,
+                                             global_norm, optimizer_slots,
                                              optimizer_step)
+from convnet_tpu_torch.regimes.regularization import bounded_weight_norm
 from convnet_tpu_torch.train.losses import CrossEntropyLoss
 from convnet_tpu_torch.train.meters import (AccuracyMeter, AverageMeter,
                                             correct_topk)
+from convnet_tpu_torch.train.mixup import CutMix, MixUp
 from convnet_tpu_torch.utils.param_filter import wd_mask
 
 log = logging.getLogger(__name__)
@@ -51,6 +59,13 @@ class TrainerConfig:
     grad_clip: float = -1.0         # global-norm clip; <= 0 disables
     loss_scale: float = 1.0
     print_freq: int = 50
+    mixup_alpha: float = 0.0        # > 0: mixup with λ ~ Beta(α, α)
+    cutmix_alpha: float = 0.0       # > 0 (and no mixup): cutmix
+    chunk_batch: int = 1            # micro-batches a step (gradients add up)
+    duplicates: int = 1             # copies of each sample, contiguous
+    adapt_grad_norm: Optional[int] = None  # measure the scale every n steps
+    average_output: bool = False    # validate: mean logits over duplicates
+    model_ema: float = 0.0          # decay of the weights' EMA; 0: off
 
 
 class Trainer:
@@ -58,8 +73,9 @@ class Trainer:
                  config: Optional[TrainerConfig] = None, device=None,
                  seed: int = 0):
         """``device``: where the model trains; ``None`` is the CUDA card.
-        ``seed`` seeds the weights :meth:`initialize` draws and the
-        generator of the model's ``Dropout`` layers."""
+        ``seed`` seeds the weights :meth:`initialize` draws, the generator
+        of the model's ``Dropout`` layers and the host-side draws of mixup
+        and cutmix."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.dropout_generator = torch.Generator(
@@ -73,6 +89,10 @@ class Trainer:
         self.policy = get_policy(self.cfg.dtype)
         self.seed = seed
         self.criterion = CrossEntropyLoss(smooth_eps=self.cfg.label_smoothing)
+        self.mix = (MixUp(self.cfg.mixup_alpha, num_classes, seed)
+                    if self.cfg.mixup_alpha > 0 else
+                    CutMix(self.cfg.cutmix_alpha, num_classes, seed)
+                    if self.cfg.cutmix_alpha > 0 else None)
         self.epoch = 0
         self.training_steps = 0
         self.opt_state = None
@@ -80,7 +100,9 @@ class Trainer:
     def initialize(self, state_dict=None):
         """Draws the model's weights from ``seed``, or loads
         ``state_dict`` (for instance ``utils.from_jax.from_jax_params``);
-        makes the weight-decay mask and the optimizer state."""
+        makes the weight-decay mask and the optimizer state (with the
+        gradient-norm scale under ``adapt_grad_norm`` and float32 copies of
+        the weights under ``model_ema``)."""
         if state_dict is None:
             init_parameters(self.model,
                             torch.Generator().manual_seed(self.seed))
@@ -90,8 +112,38 @@ class Trainer:
         mask = wd_mask(self.model)
         self._params = [p for _, p in named]
         self._mask = [mask[name] for name, _ in named]
-        self.opt_state = self.optim.init_state(self._params)
+        self.opt_state = self.optim.init_state(self._params, self._mask)
+        if self._adapts_grad_norm:
+            self.opt_state["agn_scale"] = torch.ones((), device=self.device)
+        if self.cfg.model_ema > 0:
+            self.opt_state["ema"] = [p.detach().float().clone()
+                                     for p in self._params]
         return self.opt_state
+
+    @property
+    def _adapts_grad_norm(self):
+        return bool(self.cfg.adapt_grad_norm) and self.cfg.duplicates > 1
+
+    def ema_params(self):
+        """{parameter name: its float32 EMA} under ``model_ema``, else
+        None."""
+        ema = self.opt_state.get("ema") if self.opt_state else None
+        if ema is None:
+            return None
+        names = [n for n, _ in self.model.named_parameters()]
+        return dict(zip(names, ema))
+
+    def ema_state_dict(self):
+        """The model's ``state_dict`` with the EMA in place of each
+        parameter (the BN statistics as they are): load it into a model to
+        validate or serve the averaged weights. None without ``model_ema``.
+        """
+        ema = self.ema_params()
+        if ema is None:
+            return None
+        sd = self.model.state_dict()
+        return {k: ema[k].to(v.dtype) if k in ema else v.clone()
+                for k, v in sd.items()}
 
     def hyperparams(self):
         hp = self.optim.hyperparams()
@@ -107,26 +159,84 @@ class Trainer:
 
     def train_step(self, x, y):
         """One step on the batch (x (B, H, W, C), y (B,) class labels) at the
-        regime's current setting. Returns device scalars ``loss``,
-        ``correct1``, ``correct5`` and ``grad_norm``."""
+        regime's current setting. Returns device scalars ``loss`` (the mean
+        over the chunks), ``correct1``, ``correct5`` (summed over the
+        chunks) and ``grad_norm``, and the step's ``lr`` (a float)."""
         hp = self.hyperparams()
-        step = optimizer_step(self.optim.optimizer_name)
+        name = self.optim.optimizer_name
+        missing = [s for s in optimizer_slots(name) if s not in self.opt_state]
+        if missing:
+            raise RuntimeError(f"optimizer {name} needs the state slots "
+                               f"{missing}, which the state lacks")
+        step = optimizer_step(name)
         x, y = self._to_device(x, y)
+        if self.mix is not None:
+            x, y = self.mix(x, y)
         self.model.train()
         for p in self._params:
             p.grad = None
-        logits = self.model(x)
-        loss = self.criterion(logits, y)
-        (loss * hp["loss_scale"]).backward()
+        chunks = self.cfg.chunk_batch
+        if x.shape[0] % chunks:
+            raise ValueError(f"a batch of {x.shape[0]} does not split into "
+                             f"{chunks} chunks")
+        size = x.shape[0] // chunks
+        loss = c1 = c5 = 0.0
+        for xi, yi in zip(torch.split(x, size), torch.split(y, size)):
+            logits = self.model(xi)
+            chunk_loss = self.criterion(logits, yi)
+            (chunk_loss * hp["loss_scale"]).backward()
+            cc1, cc5 = correct_topk(logits.detach(), yi, (1, 5))
+            loss, c1, c5 = loss + chunk_loss.detach(), c1 + cc1, c5 + cc5
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self._params]
+        if chunks > 1:
+            torch._foreach_div_(grads, chunks)
+            loss = loss / chunks
         torch._foreach_div_(grads, hp["loss_scale"])
+        if self._adapts_grad_norm:
+            self._adapt_grad_norm(grads, x, y, hp["loss_scale"])
         grad_norm = clip_by_global_norm(grads, hp["grad_clip"])
         step(self._params, grads, self.opt_state, hp, mask=self._mask)
+        if self.optim.uses_bounded_norm and hp["bounded_norm"] > 0:
+            bounded_weight_norm(self._params, self.opt_state["norms"],
+                                self._mask)
+        if self.cfg.model_ema > 0:
+            decay = self.cfg.model_ema
+            ema = self.opt_state["ema"]
+            with torch.no_grad():
+                torch._foreach_mul_(ema, decay)
+                torch._foreach_add_(ema, [p.float() for p in self._params],
+                                    alpha=1.0 - decay)
         self.training_steps += 1
-        c1, c5 = correct_topk(logits.detach(), y, (1, 5))
-        return {"loss": loss.detach(), "correct1": c1, "correct5": c5,
-                "grad_norm": grad_norm}
+        return {"loss": loss, "correct1": c1, "correct5": c5,
+                "grad_norm": grad_norm, "lr": hp["lr"]}
+
+    def _adapt_grad_norm(self, grads, x, y, loss_scale):
+        """Batch augmentation's gradient rescaling: every
+        ``adapt_grad_norm`` optimizer steps, the gradient of one copy of
+        each sample (``x[::duplicates]``: the copies are contiguous) is
+        computed in one extra forward and backward, and the ratio of its
+        norm to the full gradient's is kept as ``opt_state["agn_scale"]``;
+        every step scales ``grads`` by it in place. The extra forward's
+        BatchNorm statistics are discarded, as the JAX package discards
+        them."""
+        if self.opt_state["step"] % self.cfg.adapt_grad_norm == 0:
+            d = self.cfg.duplicates
+            full = global_norm(grads)
+            buffers = [b for _, b in self.model.named_buffers()]
+            saved = [b.clone() for b in buffers]
+            logits = self.model(x[::d].contiguous())
+            loss = self.criterion(logits, y[::d]) * loss_scale
+            sub = torch.autograd.grad(loss, self._params, allow_unused=True)
+            with torch.no_grad():
+                for b, v in zip(buffers, saved):
+                    b.copy_(v)
+            sub = [g if g is not None else torch.zeros_like(p)
+                   for g, p in zip(sub, self._params)]
+            torch._foreach_div_(sub, loss_scale)
+            self.opt_state["agn_scale"] = (
+                global_norm(sub) / torch.clamp_min(full, 1e-12))
+        torch._foreach_mul_(grads, self.opt_state["agn_scale"])
 
     def train_epoch(self, loader, epoch: int,
                     steps_per_epoch: Optional[int] = None):
@@ -184,8 +294,13 @@ class Trainer:
     @torch.no_grad()
     def validate(self, loader):
         """Loss and top-1/top-5 accuracy (%) over ``loader`` in eval mode.
-        Labels of -100 mark padding rows, which count nowhere."""
+        Labels of -100 mark padding rows, which count nowhere; a batch is
+        padded with such rows to a multiple of ``duplicates``. With
+        ``average_output`` the float32 logits of each group of
+        ``duplicates`` rows are averaged and scored against the group's
+        first label."""
         criterion = CrossEntropyLoss(reduction="sum")
+        d = max(self.cfg.duplicates, 1)
         loss_m = AverageMeter()
         acc = AccuracyMeter()
         pending = collections.deque()
@@ -200,7 +315,15 @@ class Trainer:
         try:
             for x, y in loader:
                 x, y = self._to_device(x, y)
+                if x.shape[0] % d:
+                    extra = d - x.shape[0] % d
+                    x = torch.cat([x, x.new_zeros((extra,) + x.shape[1:])])
+                    y = torch.cat([y, y.new_full((extra,), -100)])
                 logits = self.model(x)
+                if self.cfg.average_output and d > 1:
+                    logits = logits.float().reshape(-1, d,
+                                                    logits.shape[-1]).mean(1)
+                    y = y.reshape(-1, d)[:, 0]
                 c1, c5 = correct_topk(logits, y, (1, 5))
                 count = (y >= 0).float().sum()
                 loss = criterion(logits, y) / torch.clamp_min(count, 1.0)
@@ -214,3 +337,41 @@ class Trainer:
             self.model.train()
         return {"loss": loss_m.avg, "prec1": acc.value(1),
                 "prec5": acc.value(5)}
+
+    @torch.no_grad()
+    def calibrate_bn(self, loader, num_steps: int = 100):
+        """Re-estimates every BatchNorm's running statistics over the first
+        ``num_steps`` batches of ``loader`` (after weight averaging, for
+        instance), at the current weights. Each batch runs a training
+        forward from the same statistics; the batch's moments are recovered
+        exactly from the in-place update with that layer's own momentum m,
+        batch = (new − (1 − m)·old) / m, and averaged over the batches. The
+        model's buffers are left holding the average (the JAX package
+        returns a new state tree instead; the port's model owns its
+        buffers). Returns the number of batches used."""
+        bns = [m for m in self.model.modules() if isinstance(m, BatchNorm2d)]
+        old = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+        avg, count = None, 0
+        self.model.train()
+        for i, (x, _) in enumerate(loader):
+            if i >= num_steps:
+                break
+            x = self.policy.cast_to_compute(
+                torch.as_tensor(x).to(self.device, non_blocking=True))
+            self.model(x)
+            batch = []
+            for m, (mean0, var0) in zip(bns, old):
+                k = m.momentum
+                batch.append(((m.running_mean - (1 - k) * mean0) / k,
+                              (m.running_var - (1 - k) * var0) / k))
+                m.running_mean.copy_(mean0)
+                m.running_var.copy_(var0)
+            avg = batch if avg is None else [
+                (a_m + (b_m - a_m) / (count + 1),
+                 a_v + (b_v - a_v) / (count + 1))
+                for (a_m, a_v), (b_m, b_v) in zip(avg, batch)]
+            count += 1
+        for m, stats in zip(bns, avg or []):
+            m.running_mean.copy_(stats[0])
+            m.running_var.copy_(stats[1])
+        return count

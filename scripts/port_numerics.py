@@ -35,6 +35,23 @@ and of the float32 card-against-CPU check in chip_smoke.py:
                 worst tensor, each tensor's error over its update's norm plus
                 1e-4 of all updates' norm, since some BN shifts feed a BN
                 and have a zero gradient), BN statistics
+  trainer_features
+                the cases of tests/test_torch_port_trainer_features.py (the
+                narrow ResNet-50 under chunk_batch, the large_lars regime,
+                duplicates with adapt_grad_norm, model_ema, mixup, cutmix,
+                the SGD-to-RMSprop regime), each step from the JAX trainer's
+                state: the port's float32 step against its float64 step and
+                against the JAX step: loss, updates in norm (all; worst
+                tensor over its update's norm plus 1e-4 of all updates'
+                norm), worst element over its tensor's largest update, BN
+                statistics, the gradient-norm scale
+  trainer_features_float64
+                the chunked and the mixup step at 64x64, batch 8, where the
+                port's float32 is within 1e-4 of its float64 but the JAX
+                step is not: the JAX trainer under a float64 policy with its
+                BatchNorm in float64 too, against the port's float64 step
+                and the JAX float32 step (run this part alone: it turns on
+                JAX's 64-bit mode for the rest of the process)
   mobilenet_v2_float64
                 the same net's loss gradient at batch 8, the JAX model under
                 a float64 policy (64-bit JAX; and once more with its
@@ -49,9 +66,11 @@ take the most):
 
     JAX_PLATFORMS=cpu PYTHONPATH=.:tests python scripts/port_numerics.py \
         [sensitivity jax bf16_step bf16 float64 oscillation resnext
-         mobilenet mobilenet_v2 mobilenet_v2_float64]
+         mobilenet mobilenet_v2 trainer_features trainer_features_float64
+         mobilenet_v2_float64]
 """
 
+import copy
 import os
 import sys
 
@@ -477,10 +496,173 @@ def mobilenet_v2_float64():
               f" in norm")
 
 
+def _double_step(tr, x, y):
+    """``tr``'s next step with every float32 cast made float64: its model,
+    optimizer state and compute dtype in float64."""
+    saved_float = torch.Tensor.float
+    try:
+        torch.Tensor.float = (lambda t: t if t.dtype == torch.float64
+                              else saved_float(t))
+        tr.model.double()
+        tr._params = list(tr.model.parameters())
+        for slot, v in tr.opt_state.items():
+            if isinstance(v, list):
+                tr.opt_state[slot] = [t.double() for t in v]
+        tr.policy = type(tr.policy)(compute_dtype=torch.float64)
+        return float(tr.train_step(x, y)["loss"])
+    finally:
+        torch.Tensor.float = saved_float
+
+
+def trainer_features():
+    import test_torch_port_trainer_features as F
+    os.environ.update(F.PALLAS_ENV)
+    weights = F.weights.__wrapped__()
+    cases = list(F.CASES.items())
+    # the batches the tests do not use, and why
+    for name, batch in (("chunk_batch", 8), ("chunk_batch", 16),
+                        ("large_lars", 8)):
+        cfg, model_kw, regime, dup, _, epochs = F.CASES[name]
+        cases.append((name, (cfg, model_kw, regime, dup, batch, epochs)))
+    for name, case in cases:
+        F.CASES[f"{name} (batch {case[4]})"] = case
+        _feature_case(F, weights, f"{name} (batch {case[4]})")
+
+
+def _feature_case(F, weights, name):
+    """One case of ``F.CASES``: each step of the port against its float64
+    step and against the JAX step."""
+    cfg, model_kw, regime = F.CASES[name][:3]
+    _, steps, _, ours, j_batches = F.run_case(name, weights)
+    plain = {k: v for k, v in cfg.items()
+             if k not in ("mixup_alpha", "cutmix_alpha")}
+    for i, ((epoch, before, j_loss, (j_p, j_s, j_opt)), (x, y)) in \
+            enumerate(zip(steps, j_batches)):
+        t = F._port_trainer(plain, model_kw, regime)
+        F._load(t, *before)
+        t.optim.update(epoch, i)
+        p0 = {k: v.detach().double().clone()
+              for k, v in t.model.named_parameters()}
+        l64 = _double_step(t, x, y)
+        u64 = {k: (v.detach().double() - p0[k]).numpy()
+               for k, v in t.model.named_parameters()}
+        loss, (p, s), opt = ours[i]
+        w0 = F.from_jax_params(before[0])
+        u32 = {k: (v.double() - w0[k].double()).numpy()
+               for k, v in F.from_jax_params(p).items()}
+        ref = {k: (v.double() - w0[k].double()).numpy()
+               for k, v in F.from_jax_params(j_p).items()}
+        rs = {k: v.numpy() for k, v in F.from_jax_params({}, j_s).items()}
+        gs = {k: v.numpy() for k, v in F.from_jax_params({}, s).items()}
+        stats = max(float((np.abs(gs[k] - rs[k]) / (1 + np.abs(rs[k])))
+                          .max()) for k in rs)
+        for what, other, other_loss in (("its float64", u64, l64),
+                                        ("JAX", ref, j_loss)):
+            errs = _update_errs(u32, other, floor=1e-4)
+            print(f"{name}, step {i + 1}: the port's "
+                  f"float32 against {what}: loss "
+                  f"{abs(loss - other_loss) / other_loss:.3g}, updates "
+                  f"in norm {errs[0]:.3g}, worst tensor {errs[1]:.3g}, "
+                  f"worst element {errs[2]:.3g}"
+                  + (f", BN statistics {stats:.3g}" if what == "JAX"
+                     else ""), flush=True)
+        if "agn_scale" in j_opt:
+            print(f"{name}, step {i + 1}: gradient-norm scale "
+                  f"{float(opt['agn_scale']):.6g}, JAX "
+                  f"{float(j_opt['agn_scale']):.6g}", flush=True)
+
+
+def trainer_features_float64():
+    """Where the port's float32 step is within 1e-4 of its float64 step but
+    several percent from the JAX trainer's (the chunked and the mixup step
+    at 64x64, batch 8): one step of the JAX trainer under a float64 policy
+    with its BatchNorm in float64 too (``impl="xla"``), against the port's
+    float64 step and the JAX float32 step."""
+    import test_torch_port_trainer_features as F
+    import convnet_tpu.ops.norm as jax_norm
+    from convnet_tpu.core.dtypes import Policy
+    F.SIZE = 64
+    weights = F.weights.__wrapped__()
+    cases = [("chunk_batch=2", {"chunk_batch": 2}),
+             ("mixup", {"label_smoothing": 0.1, "mixup_alpha": 0.2})]
+    results = {}
+    for name, cfg in cases:
+        x, y = F._batches(1, 8, seed=7)[0]
+        tr = F._port_trainer(cfg)
+        if tr.mix is not None:
+            x, y = (t.numpy() for t in tr.mix(torch.from_numpy(x),
+                                              torch.from_numpy(y)))
+        j_cfg = {k: v for k, v in cfg.items() if k != "mixup_alpha"}
+        p0 = F.from_jax_params(weights[0])
+        upd = {}
+        for double in (False, True):
+            t = F._port_trainer(j_cfg)
+            F._load(t, *weights, {"step": 0, "mu": jax.tree_util.tree_map(
+                np.zeros_like, weights[0])})
+            if double:
+                _double_step(t, x, y)
+            else:
+                t.train_step(x, y)
+            upd[f"port {'float64' if double else 'float32'}"] = {
+                k: (v.detach().double() - p0[k].double()).numpy()
+                for k, v in t.model.named_parameters()}
+        results[name] = (cfg, j_cfg, x, y, upd)
+
+    def jax_update(j_cfg, x, y, dt):
+        policy = Policy(param_dtype=dt, compute_dtype=dt, stat_dtype=dt)
+        model = jax_models.build("resnet", **F.NARROW)
+        tr = JaxTrainer(model, jax_optim.OptimRegime(model.regime),
+                        F.NARROW["num_classes"],
+                        JaxTrainerConfig(dtype=policy, print_freq=0, **j_cfg))
+        cast = lambda t: jax.tree_util.tree_map(  # noqa: E731
+            lambda a: jnp.asarray(a, dt), t)
+        params, state, opt = tr.initialize(cast(weights[0]),
+                                           cast(weights[1]))
+        tr.optim.update(0, 0)
+        hp = {k: jnp.asarray(v, dt) for k, v in tr.optim.hyperparams().items()}
+        new, _, _, _ = tr._get_train_step()(
+            params, state, opt, jnp.asarray(x, dt),
+            jnp.asarray(y) if y.dtype.kind == "i" else jnp.asarray(y, dt),
+            hp, jax.random.PRNGKey(0))
+        after = F.from_jax_params(jax.tree_util.tree_map(
+            lambda a: np.asarray(a, np.float64), new))
+        before = F.from_jax_params(weights[0])
+        return {k: (after[k].double() - before[k].double()).numpy()
+                for k in after}
+
+    for name, (cfg, j_cfg, x, y, upd) in results.items():
+        upd["JAX float32"] = jax_update(j_cfg, x, y, jnp.float32)
+    jax.config.update("jax_enable_x64", True)
+
+    class Float64Numpy:
+        float32 = jnp.float64
+
+        def __getattr__(self, name):
+            return getattr(jnp, name)
+
+    jax_norm.jnp = Float64Numpy()
+    try:
+        for name, (cfg, j_cfg, x, y, upd) in results.items():
+            upd["JAX float64"] = jax_update(j_cfg, x, y, jnp.float64)
+    finally:
+        jax_norm.jnp = jnp
+
+    for name, (_, _, _, _, upd) in results.items():
+        for a, b in (("port float32", "port float64"),
+                     ("JAX float32", "JAX float64"),
+                     ("port float64", "JAX float64"),
+                     ("port float32", "JAX float32")):
+            errs = _update_errs(upd[a], upd[b], floor=1e-4)
+            print(f"{name}, 64x64, batch 8, first step: {a} against {b}: "
+                  f"updates in norm {errs[0]:.3g}, worst tensor "
+                  f"{errs[1]:.3g}, worst element {errs[2]:.3g}", flush=True)
+
+
 PARTS = {"sensitivity": sensitivity, "jax": jax_steps, "bf16_step": bf16_step,
          "bf16": bf16_blocks, "float64": float64, "oscillation": oscillation,
          "resnext": resnext, "mobilenet": mobilenet,
-         "mobilenet_v2": mobilenet_v2,
+         "mobilenet_v2": mobilenet_v2, "trainer_features": trainer_features,
+         "trainer_features_float64": trainer_features_float64,
          "mobilenet_v2_float64": mobilenet_v2_float64}
 
 if __name__ == "__main__":

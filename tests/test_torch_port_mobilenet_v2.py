@@ -208,7 +208,8 @@ def first_step():
     j_loss, j_params, j_state = jax_step(params, state, x, y)
     tr = port_trainer(params, state)
     assert tr.optim.optimizer_name == "RMSprop"
-    assert set(tr.opt_state) == {"step", "mu", "v"}
+    # the JAX package's slots for RMSprop: m and v come together
+    assert set(tr.opt_state) == {"step", "mu", "m", "v"}
     loss = float(tr.train_step(x, y)["loss"])
     p, s = to_jax_params(tr.model.state_dict())
     return params, (j_loss, j_params, j_state), (loss, p, s)

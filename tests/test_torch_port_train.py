@@ -253,9 +253,13 @@ def test_pure_python_copies_match_jax():
 
 
 def test_other_optimizers_are_refused():
-    reg = optim.OptimRegime([{"epoch": 0, "optimizer": "Adam", "lr": 1e-3}])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every optimizer of the JAX package is ported; a name outside them is
+    refused where the state is made and where the step is looked up."""
+    reg = optim.OptimRegime([{"epoch": 0, "optimizer": "Adagrad", "lr": 1e-3}])
+    with pytest.raises(ValueError, match="unknown optimizer 'Adagrad'"):
         reg.init_state([torch.zeros(2)])
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        optim.optimizer_step("Adagrad")
 
 
 # ---------------------------------------------- weight-decay mask, names
