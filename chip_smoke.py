@@ -9,9 +9,12 @@ Run from the repository root with one CUDA card, nvcc and nvidia-smi:
 Without a card, or without the ``convnet_tpu_torch`` package beside it, it
 exits non-zero before printing any result. It imports nothing of JAX.
 
-Four models, each at full width, 224x224, weights drawn from a seed:
-ResNet-50, ResNeXt-50 32x4d, MobileNet v1 and MobileNet-V2; and two more
-training paths of ResNet-50 (large-batch LARS, batch augmentation).
+Five models, each at full width, 224x224, weights drawn from a seed:
+ResNet-50, SE-ResNet-50, ResNeXt-50 32x4d, MobileNet v1 and MobileNet-V2;
+four more training paths of ResNet-50 (large-batch LARS, batch
+augmentation, remat of every stage and of the first); and the CIFAR
+ResNets (ResNet-20, WRN-26-4) through a checkpoint, a mid-epoch resume
+and serving from the checkpoint.
 
 1. card: name and power limit; the CUDA kernels are built with nvcc, one
    process per source, all started together.
@@ -45,8 +48,8 @@ training paths of ResNet-50 (large-batch LARS, batch augmentation).
    and the CUDA kernels of one batch-1 forward are counted (torch.profiler),
    on its first call and on a later one.
 4. train: each model in the port's ``Trainer`` with its "normal" regime
-   (SGD; RMSprop for MobileNet-V2). ResNet-50, MobileNet v1 and
-   MobileNet-V2 (dropout 0): one float32 step on the card (TF32 off)
+   (SGD; RMSprop for MobileNet-V2). ResNet-50, SE-ResNet-50, MobileNet v1
+   and MobileNet-V2 (dropout 0): one float32 step on the card (TF32 off)
    against the same step on the CPU. bf16 steps at batch 128 on one random
    batch (20 for ResNet-50, 10 for the others), counted and timed; two more
    under torch.profiler, whose device time is broken down by kernel; and
@@ -60,6 +63,21 @@ training paths of ResNet-50 (large-batch LARS, batch augmentation).
    4h. batch augmentation: ResNet-50, 64 images in 4 copies each, mixup,
    the gradient-norm scale, the weights' EMA, bf16, 4 steps; ``validate``
    with averaged outputs, ``calibrate_bn`` on the EMA weights, ``validate``.
+   4i. remat: ResNet-50 with every stage and with ``layer1`` alone wrapped
+   in ``CheckpointModule``. A float32 step of each at CHECK_BATCH against
+   the unwrapped model's CPU step, and its BN statistics against the
+   unwrapped model's card step (1e-6: the recompute must not update them
+   again); then 5 bf16 steps at batch 128 of the plain model and of each
+   variant in one run: step p50 (host clock and CUDA events), peak memory,
+   one pool launch each way a step.
+   4j. CIFAR: ResNet-20 on CIFAR-10 and WRN-26-4 at 32x32, bf16, batch
+   128, the model's regime, cuDNN deterministic: an epoch of 20 fixed
+   random batches with a watcher; again with a checkpoint saved after
+   batch 10; a fresh Trainer loads it and resumes at batch 10. The end
+   state must equal the uninterrupted run's bit for bit; the watcher files
+   hold 20 and 10 lines. ``Predictor.from_checkpoint`` of the final
+   checkpoint answers requests of 64, 17 and 1 within the bf16 serving
+   tolerance of the trainer's model. No kernel runs on this path.
 5. summary: one ``{"kernels": [...]}`` line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -73,9 +91,11 @@ import concurrent.futures
 import faulthandler
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -162,6 +182,10 @@ def launches(conv1x1=0, pool_fwd=0, pool_bwd=0, grouped=0, depthwise=0,
 MODELS = {
     "resnet50": ("resnet", {"depth": 50}, launches(33, 1),
                  launches(0, 1, 1), 20),
+    # SE after each bottleneck's last ConvBN, in plain ops: ResNet-50's
+    # kernel routes and shapes
+    "resnet_se50": ("resnet_se", {"depth": 50}, launches(33, 1),
+                    launches(0, 1, 1), 10),
     "resnext50_32x4d": ("resnext", {}, launches(33, 1, grouped=13),
                         launches(0, 1, 1), 10),
     "mobilenet_v1": ("mobilenet", {}, launches(13, depthwise=13),
@@ -221,6 +245,29 @@ BATCH_AUG = {"duplicates": 4, "adapt_grad_norm": 2, "mixup_alpha": 0.2,
              "label_smoothing": 0.1, "average_output": True,
              "model_ema": 0.999}
 BATCH_AUG_IMAGES, BATCH_AUG_STEPS = 64, 4
+# phase 4i: remat of ResNet-50, every stage and the first alone, against the
+# plain model, bf16 at TRAIN_BATCH; the BN statistics of a float32 remat
+# step on the card against the plain model's step there, relative (the
+# recompute must not move them a second time: that would be a momentum's
+# share, 1e-1)
+REMAT = {"all": True, "layer1": ("layer1",)}
+REMAT_STEPS = 8
+REMAT_STATS_TOL = 1e-6
+# phase 4j: BASELINE.json's first config (ResNet-20 on CIFAR-10, batch 128,
+# SGD with momentum) and the wide ResNet at its defaults (WRN-26-4), bf16;
+# one epoch of CIFAR_BATCHES fixed random batches, then the same epoch
+# saved after batch CIFAR_SAVE_AT and resumed by a fresh Trainer
+# (the configs name the dataset, as the JAX package's CLI records it: serving
+# takes its normalisation from there)
+CIFAR_MODELS = {"resnet20_cifar10": ("resnet", {"dataset": "cifar10",
+                                                "depth": 20}),
+                "wide_resnet_26_4": ("wide_resnet", {"dataset": "cifar10"})}
+CIFAR_BATCHES, CIFAR_SAVE_AT, CIFAR_BATCH = 20, 10, 128
+# phase 4j's served logits against the trainer's model in eval in float32,
+# as a share of its largest |logit|: bf16 (BN folded) within
+# SERVE_TOL["bf16"], float32 within SERVE_TOL["float32"]
+WATCH_KEYS = {"epoch", "step", "loss", "grad_norm", "lr", "step_time",
+              "data_time"}
 
 T0 = time.perf_counter()
 
@@ -1075,33 +1122,51 @@ def augmented_copies(x, duplicates):
     return x
 
 
+def _plain_name(name):
+    """A remat model's parameter or buffer name as the unwrapped model's."""
+    return name.replace(".module.", ".")
+
+
 def check_step_against_cpu(torch, tag, features=None, duplicates=1,
-                           **overrides):
+                           card_model=None, cpu_steps=None, **overrides):
     """Phase 4a: one float32 step on the card and on the CPU from the same
     weights (seed) and batch; ``features`` are ``TrainerConfig`` fields
     (mixup draws its λ on the host from the seed, so both devices mix
     alike), ``duplicates`` packs that many copies of each of the
-    ``CHECK_BATCH`` images, and ``overrides`` change the model's config."""
+    ``CHECK_BATCH`` images, ``overrides`` change the model's config and
+    ``card_model`` the card's model alone (remat: the CPU runs the unwrapped
+    model). ``cpu_steps``: a dict that keeps the CPU's steps for a later
+    call with the same arguments. Returns the card's BN statistics after
+    the step, by the unwrapped model's names."""
     rng = np.random.default_rng(SEED + 1)
     x = rng.standard_normal((CHECK_BATCH, 224, 224, 3)).astype(np.float32)
     y = rng.integers(0, 1000, CHECK_BATCH)
     if duplicates > 1:
         x, y = augmented_copies(x, duplicates), np.repeat(y, duplicates)
+    key = repr((tag, features, duplicates, sorted(overrides.items())))
+    cpu_steps = {} if cpu_steps is None else cpu_steps
     res = {}
     for where in ("cpu", None):
+        if where == "cpu" and key in cpu_steps:
+            res["cpu"] = cpu_steps[key]
+            continue
         tr = make_trainer(torch, tag, "float32", where, features,
-                          **overrides)
-        p0 = {n: q.detach().cpu().clone()
+                          **overrides,
+                          **((card_model or {}) if where is None else {}))
+        p0 = {_plain_name(n): q.detach().cpu().clone()
               for n, q in tr.model.named_parameters()}
         loss = float(tr.train_step(x, y)["loss"])
-        upd = {n: q.detach().cpu() - p0[n]
+        upd = {_plain_name(n): q.detach().cpu() - p0[_plain_name(n)]
                for n, q in tr.model.named_parameters()}
-        stats = {n: b.detach().cpu() for n, b in tr.model.named_buffers()}
+        stats = {_plain_name(n): b.detach().cpu()
+                 for n, b in tr.model.named_buffers()}
         res[where or "cuda"] = (loss, upd, stats, p0)
         del tr
+    cpu_steps[key] = res["cpu"]
     (l_cpu, u_cpu, s_cpu, p0_cpu), (l_gpu, u_gpu, s_gpu, p0_gpu) = (
         res["cpu"], res["cuda"])
-    if any(not torch.equal(p0_cpu[n], p0_gpu[n]) for n in p0_cpu):
+    if p0_cpu.keys() != p0_gpu.keys() or any(
+            not torch.equal(p0_cpu[n], p0_gpu[n]) for n in p0_cpu):
         raise RuntimeError("the card and the CPU drew different weights")
     loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
     all_norm = sum(u_cpu[n].square().sum() for n in u_cpu).sqrt()
@@ -1119,6 +1184,7 @@ def check_step_against_cpu(torch, tag, features=None, duplicates=1,
                     / (1 + s_cpu[n].abs())).max().item() for n in s_cpu)
     rec = {"check": "train_step_card_vs_cpu", "model": tag,
            "features": features or {}, "model_overrides": overrides,
+           "card_model": card_model or {},
            "dtype": "float32", "batch": len(x), "loss_cpu": l_cpu,
            "loss_card": l_gpu, "loss_rel_err": loss_err,
            "update_norm_rel_err": total, "update_worst_tensor": worst,
@@ -1131,6 +1197,7 @@ def check_step_against_cpu(torch, tag, features=None, duplicates=1,
             or per_tensor[worst] > STEP_TOL["update_norm_per_tensor"]):
         raise RuntimeError(f"{tag}: the float32 step on the card disagrees "
                            f"with the CPU's")
+    return s_gpu
 
 
 # kernel name → share of the step, first match wins
@@ -1445,6 +1512,267 @@ def train_batch_augmentation(torch, card, k):
     return counted
 
 
+def check_remat_steps(torch, stats_plain, cpu_steps):
+    """Phase 4i, float32: each remat variant's step at CHECK_BATCH on the
+    card against the unwrapped model's step on the CPU from the same
+    weights (STEP_TOL), and its BN statistics against the unwrapped model's
+    step on the card (``stats_plain``, from phase 4a) within
+    REMAT_STATS_TOL of each tensor's largest value. ``cpu_steps`` holds
+    phase 4a's CPU step of the unwrapped ResNet-50."""
+    for variant, remat in REMAT.items():
+        stats = check_step_against_cpu(torch, "resnet50",
+                                       card_model={"remat": remat},
+                                       cpu_steps=cpu_steps)
+        err = max(((stats[n] - b).abs().max()
+                   / b.abs().max().clamp_min(1e-30)).item()
+                  for n, b in stats_plain.items())
+        emit({"check": "remat_bn_statistics_card", "remat": variant,
+              "dtype": "float32", "batch": CHECK_BATCH,
+              "max_rel_err_vs_unwrapped": err, "tol": REMAT_STATS_TOL})
+        if err > REMAT_STATS_TOL:
+            raise RuntimeError(f"remat {variant}: BN statistics {err} from "
+                               f"the unwrapped step's: updated twice?")
+
+
+def train_remat(torch, card, k):
+    """Phase 4i: ResNet-50 in bf16 at TRAIN_BATCH on phase 4b's batch,
+    REMAT_STEPS steps each of the plain model, remat of every stage and of
+    ``layer1`` alone, in one run: step p50 (host clock and CUDA events) and
+    peak memory. Checks finite losses and one pool launch each way a step.
+    Returns the remat variants' launch counts."""
+    per_step = MODELS["resnet50"][3]
+    rng = np.random.default_rng(SEED + 2)
+    x = torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH, 224, 224, 3)).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 1000, TRAIN_BATCH)).cuda()
+    counted = launches()
+    res = {}
+    for variant in ("plain", *REMAT):
+        overrides = {} if variant == "plain" else {"remat": REMAT[variant]}
+        tr = make_trainer(torch, "resnet50", "bf16", None, **overrides)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(k)
+        losses, times, device_ms = [], [], []
+        for i in range(REMAT_STEPS):
+            before = counts(k)
+            m, dt = step_timed(torch, tr, x, y)
+            step_counts = {n: v - before[n] for n, v in counts(k).items()}
+            expect_counts(f"resnet50 remat {variant} step {i}", step_counts,
+                          per_step)
+            losses.append(m["loss"])
+            times.append(dt)
+            device_ms.append(m["device_ms"])
+        peak = torch.cuda.max_memory_allocated()
+        if not all(np.isfinite(losses)):
+            raise RuntimeError(f"remat {variant}: non-finite loss: {losses}")
+        if variant != "plain":
+            counted = add_counts(counted, counts(k))
+        res[variant] = {"losses": losses,
+                        "step_ms": [t * 1e3 for t in times],
+                        "step_p50_ms": statistics.median(times[1:]) * 1e3,
+                        "device_ms": device_ms,
+                        "device_p50_ms": statistics.median(device_ms[1:]),
+                        "max_memory_allocated_bytes": peak}
+        log(f"resnet50 remat {variant}: p50 {res[variant]['step_p50_ms']:.2f}"
+            f" ms, device {res[variant]['device_p50_ms']:.2f} ms, peak "
+            f"{peak / 1e9:.2f} GB")
+        del tr
+        torch.cuda.empty_cache()
+    base = res["plain"]
+    for variant in REMAT:
+        r = res[variant]
+        r["step_over_plain"] = r["step_p50_ms"] / base["step_p50_ms"]
+        r["device_over_plain"] = r["device_p50_ms"] / base["device_p50_ms"]
+        r["peak_over_plain"] = (r["max_memory_allocated_bytes"]
+                                / base["max_memory_allocated_bytes"])
+    emit({"train": "resnet50_remat_bf16_224", "card": card,
+          "batch": TRAIN_BATCH, "steps": REMAT_STEPS, **res,
+          "note": "host clock around train_step, closed by a read of the "
+                  f"loss; p50 over steps 2-{REMAT_STEPS}; device_ms: CUDA "
+                  "events before and after each step; the three models in "
+                  "one run"})
+    del x, y
+    return counted
+
+
+def _trainer_tensors(tr):
+    """A trainer's weights, BN statistics and optimizer slots, in order."""
+    out = list(tr.model.state_dict().values())
+    for slot, v in tr.opt_state.items():
+        if isinstance(v, list):
+            out += v
+    return out
+
+
+def _distance(a, b):
+    """The norm of (a − b) over the norm of a, over every tensor."""
+    num = sum((x.double() - y.double()).square().sum() for x, y in zip(a, b))
+    den = sum(x.double().square().sum() for x in a)
+    return float((num / den).sqrt())
+
+
+def cifar_resume(torch, card, tag, name, config, tmp):
+    """Phase 4j for one CIFAR model: an epoch of CIFAR_BATCHES fixed random
+    batches (bf16, the model's regime, a watcher); the same epoch with a
+    checkpoint saved in the background after batch CIFAR_SAVE_AT (that run
+    is a second uninterrupted run); a fresh Trainer that loads it and runs
+    ``train_epoch(start_batch=CIFAR_SAVE_AT)``. The resumed run's weights,
+    BN statistics and optimizer state must equal the first run's bit for
+    bit; should the second uninterrupted run differ from the first (an op
+    without a deterministic form), the resumed run may differ by no more
+    than it. The watcher files hold CIFAR_BATCHES and CIFAR_BATCHES −
+    CIFAR_SAVE_AT lines with the reference's keys. Then
+    ``Predictor.from_checkpoint`` of the first run's final checkpoint
+    answers requests of 64, 17 and 1 in bf16, and in float32 a request of
+    64, against the trainer's model in eval in float32 on the same images
+    (tolerances: the comment above WATCH_KEYS); the trainer's own bf16
+    eval forward's distance from it is reported beside them."""
+    from convnet_tpu_torch import models
+    from convnet_tpu_torch.data.preprocess import DATASET_STATS
+    from convnet_tpu_torch.regimes.optim import OptimRegime
+    from convnet_tpu_torch.serve import Predictor
+    from convnet_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from convnet_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                    save_checkpoint,
+                                                    wait_for_pending_save)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    loader = [(torch.randn((CIFAR_BATCH, 32, 32, 3), generator=gen,
+                           device="cuda"),
+               torch.randint(0, 10, (CIFAR_BATCH,), generator=gen,
+                             device="cuda"))
+              for _ in range(CIFAR_BATCHES)]
+
+    def trainer():
+        model = models.build(name, **config)
+        tr = Trainer(model, OptimRegime(model.regime), model.fc.out_features,
+                     TrainerConfig(dtype="bf16", print_freq=0), seed=SEED)
+        tr.initialize()
+        return tr
+
+    ckdir = os.path.join(tmp, tag)
+    saves = []
+
+    def hook(tr, batch_idx):
+        if batch_idx == CIFAR_SAVE_AT:
+            t = time.perf_counter()
+            save_checkpoint(tr.checkpoint_dict(batch_idx=batch_idx,
+                                               model=name, config=config),
+                            False, ckdir, background=True)
+            saves.append(time.perf_counter() - t)
+
+    runs, results, watch = [], [], []
+    for i, kw in enumerate(({}, {"step_hook": hook},
+                            {"start_batch": CIFAR_SAVE_AT})):
+        tr = trainer()
+        if "start_batch" in kw:
+            wait_for_pending_save()
+            tr.load_checkpoint(load_checkpoint(ckdir))
+        path = os.path.join(tmp, f"{tag}_{i}.jsonl")
+        tr.set_watcher(path)
+        results.append(tr.train_epoch(loader, 0, **kw))
+        tr.set_watcher(None)
+        with open(path) as f:
+            watch.append([json.loads(line) for line in f])
+        runs.append(tr)
+    first, second, resumed = (_trainer_tensors(t) for t in runs)
+    exact = all(torch.equal(a, b) for a, b in zip(first, resumed))
+    repeat_exact = all(torch.equal(a, b) for a, b in zip(first, second))
+    d_resumed, d_repeat = _distance(first, resumed), _distance(first, second)
+    want_steps = [list(range(1, CIFAR_BATCHES + 1)), None,
+                  list(range(CIFAR_SAVE_AT + 1, CIFAR_BATCHES + 1))]
+    for lines, steps in zip(watch, want_steps):
+        if steps and ([line["step"] for line in lines] != steps
+                      or any(set(line) != WATCH_KEYS for line in lines)):
+            raise RuntimeError(f"{tag}: watcher lines {lines[:2]}..., "
+                               f"{len(lines)} of them")
+    losses = [line["loss"] for line in watch[0]]
+    if not (all(np.isfinite(losses)) and runs[2].training_steps
+            == runs[0].training_steps == CIFAR_BATCHES):
+        raise RuntimeError(f"{tag}: losses {losses}, steps "
+                           f"{[t.training_steps for t in runs]}")
+    if not exact and (repeat_exact or d_resumed > d_repeat):
+        raise RuntimeError(f"{tag}: the resumed run is {d_resumed} from the "
+                           f"uninterrupted one; a second uninterrupted run "
+                           f"{d_repeat}")
+
+    final = os.path.join(tmp, f"{tag}_final")
+    save_checkpoint(runs[0].checkpoint_dict(model=name, config=config),
+                    False, final)
+    pred = Predictor.from_checkpoint(final, batch_size=SERVE_BATCH)
+    images = np.random.default_rng(SEED + 6).integers(
+        0, 256, (SERVE_BATCH, 32, 32, 3), np.uint8)
+    logits = [pred(images[:n]) for n in REQUESTS]
+    pred32 = Predictor.from_checkpoint(final, batch_size=SERVE_BATCH,
+                                       dtype="float32")(images)
+    stats = DATASET_STATS["cifar10"]
+    model = runs[0].model.eval()
+    with torch.no_grad():
+        xf = torch.from_numpy(images).cuda().float() / 255.0
+        xf = ((xf - torch.tensor(stats["mean"], device="cuda"))
+              / torch.tensor(stats["std"], device="cuda"))
+        ref = model(xf).float().cpu().numpy()
+        ref_bf16 = model(xf.bfloat16()).float().cpu().numpy()
+    errs = {"served_bf16": rel_err(logits[0], ref),
+            "served_float32": rel_err(pred32, ref),
+            "trainer_bf16_eval": rel_err(ref_bf16, ref)}
+    pad = max(float(np.abs(out - logits[0][:n]).max())
+              for n, out in zip(REQUESTS[1:], logits[1:]))
+    shapes_ok = all(out.shape == (n, 10) and np.isfinite(out).all()
+                    for n, out in zip(REQUESTS, logits))
+    probe = loader[0]
+    step_kernels = kernel_launches(
+        torch, lambda: float(runs[0].train_step(*probe)["loss"]))
+    rec = {"train": f"{tag}_bf16_32_resume", "card": card,
+           "model": [name, config], "batch": CIFAR_BATCH,
+           "batches": CIFAR_BATCHES, "saved_after": CIFAR_SAVE_AT,
+           "resume_bit_exact": exact, "repeat_bit_exact": repeat_exact,
+           "resumed_distance": d_resumed, "repeat_distance": d_repeat,
+           "watcher_lines": [len(w) for w in watch],
+           "losses": losses,
+           "step_p50_ms": results[0]["step_time_p50"] * 1e3,
+           "images_per_s": CIFAR_BATCH / results[0]["step_time_p50"],
+           "data_time_ms": results[0]["data_time"] * 1e3,
+           "resumed_step_p50_ms": results[2]["step_time_p50"] * 1e3,
+           "step_cuda_kernels": step_kernels,
+           "background_save_ms": [t * 1e3 for t in saves],
+           "logits_rel_err_vs_trainer_float32": errs,
+           "tol": SERVE_TOL, "served_padding_max_diff": pad,
+           "note": "step times: host clock around each step (optimizer "
+                   "update, train_step, step hook); the metrics are read two "
+                   "steps late, so a step's time is mostly its launches; "
+                   "step_cuda_kernels: torch.profiler over one more step"}
+    emit(rec)
+    if (not shapes_ok or errs["served_bf16"] > SERVE_TOL["bf16"]
+            or errs["served_float32"] > SERVE_TOL["float32"]
+            or pad > PAD_TOL):
+        raise RuntimeError(f"{tag}: serving from the checkpoint: errors "
+                           f"{errs}, padding {pad}, shapes ok {shapes_ok}")
+    log(f"{tag}: resume bit-exact {exact} (a repeat {repeat_exact}); "
+        f"served from the checkpoint: {errs}")
+
+
+def train_cifar_resume(torch, card, k):
+    """Phase 4j for both CIFAR models, with cuDNN deterministic and its
+    autotuner off for the phase. The CIFAR ResNets reach no kernel (no max
+    pool, no stride-1 1x1 ConvBN): their launch counts must stay 0.
+    Returns them."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    reset_counts(k)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for tag, (name, config) in CIFAR_MODELS.items():
+                cifar_resume(torch, card, tag, name, config, tmp)
+                torch.cuda.empty_cache()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    expect_counts("the CIFAR models: training, resume and serving",
+                  counts(k), launches())
+    return counts(k)
+
+
 def kernel_launches(torch, fn):
     """CUDA kernels (not copies or sets) that one call of ``fn`` launches,
     counted by torch.profiler; None where it recorded no device event (not
@@ -1613,7 +1941,10 @@ def main():
 
     # -- 4. train: the second path, counted, model by model
     t = time.perf_counter()
-    for tag in ("resnet50", "mobilenet_v1"):
+    cpu_steps = {}
+    stats_plain = check_step_against_cpu(torch, "resnet50",
+                                         cpu_steps=cpu_steps)
+    for tag in ("resnet_se50", "mobilenet_v1"):
         check_step_against_cpu(torch, tag)
     check_step_against_cpu(torch, "mobilenet_v2", dropout=0.0)
     # the two paths of phases 4g and 4h, in float32 at CHECK_BATCH
@@ -1639,6 +1970,16 @@ def main():
     path_counts["batch_augmentation"] = train_batch_augmentation(
         torch, card, k)
     seconds["batch_augmentation"] = time.perf_counter() - t
+
+    # -- 4i, 4j. remat; the CIFAR ResNets, resume and serving from a
+    # checkpoint
+    t = time.perf_counter()
+    check_remat_steps(torch, stats_plain, cpu_steps)
+    path_counts["remat"] = train_remat(torch, card, k)
+    seconds["remat"] = time.perf_counter() - t
+    t = time.perf_counter()
+    path_counts["cifar_resume"] = train_cifar_resume(torch, card, k)
+    seconds["cifar_resume"] = time.perf_counter() - t
     seconds["total"] = time.perf_counter() - t0
     emit({"seconds_by_phase": seconds})
 
@@ -1646,8 +1987,8 @@ def main():
     # every row: ms, back-to-back wrapper calls timed with CUDA events (the
     # wrapper's weight casts and copies included); kernel_ms, the kernel
     # alone (its launches replayed from a CUDA graph); launches, the serving,
-    # the training, the large-batch LARS and the batch-augmentation runs
-    # together
+    # the training, the large-batch LARS, the batch-augmentation, the remat
+    # and the CIFAR runs together
     by_path = {"serve": serve_counts, "train": train_counts, **path_counts}
 
     def row(name, source, replaces, ms, kernel_ms, plain_ms, bound_ms,

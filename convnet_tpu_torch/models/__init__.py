@@ -1,18 +1,23 @@
 """Model registry — ``models.build(name, **config)`` (counterpart of
-convnet_tpu/models/__init__.py). Ported so far: the ImageNet ResNets,
-ResNeXt, the zero-init-residual ResNet, MobileNet v1 and MobileNet-V2."""
+convnet_tpu/models/__init__.py). Ported so far: the ImageNet and CIFAR
+ResNets (with SE blocks and remat), ResNeXt, the zero-init-residual ResNet,
+the wide CIFAR ResNet, MobileNet v1 and MobileNet-V2."""
 
 from convnet_tpu_torch.models.mobilenet import MobileNet, mobilenet
 from convnet_tpu_torch.models.mobilenet_v2 import MobileNetV2, mobilenet_v2
-from convnet_tpu_torch.models.resnet import ResNet_imagenet, resnet, resnext
+from convnet_tpu_torch.models.resnet import (ResNet_cifar, ResNet_imagenet,
+                                             resnet, resnet_se, resnext,
+                                             wide_resnet)
 from convnet_tpu_torch.models.resnet_zi import resnet_zi
 
 REGISTRY = {
     "resnet": resnet,
+    "resnet_se": resnet_se,
     "resnext": resnext,
     "resnet_zi": resnet_zi,
     "mobilenet": mobilenet,
     "mobilenet_v2": mobilenet_v2,
+    "wide_resnet": wide_resnet,
 }
 
 
@@ -25,5 +30,6 @@ def build(name, **config):
     return factory(**config)
 
 
-__all__ = ["REGISTRY", "MobileNet", "MobileNetV2", "ResNet_imagenet", "build",
-           "mobilenet", "mobilenet_v2", "resnet", "resnet_zi", "resnext"]
+__all__ = ["REGISTRY", "MobileNet", "MobileNetV2", "ResNet_cifar",
+           "ResNet_imagenet", "build", "mobilenet", "mobilenet_v2", "resnet",
+           "resnet_se", "resnet_zi", "resnext", "wide_resnet"]

@@ -18,9 +18,16 @@ conv kernel (``nn.Conv2d.uses_grouped_kernel``): 13 per ResNeXt-50 forward.
 The model carries its own optimizer schedule, ``model.regime``, built by
 ``_make_regime`` (a copy of the JAX package's regimes).
 
-Not ported yet: the CIFAR ResNets, SE blocks, remat, the ``s2d`` stem and
-the ``data_regime`` of ``regime="mixmatch"`` (it waits for the data
-pipeline).
+``se_reduction`` puts an SE block (``nn/se.py``) after each block's last
+``ConvBN``, before the residual add; it runs in plain ops and leaves the
+kernel routes as they are (33 fused 1x1 launches per SE-ResNet-50 forward).
+``remat`` wraps blocks in ``nn.CheckpointModule``: every stage (True) or the
+stages named (``("layer1",)``); the CIFAR ResNets take a bool. The CIFAR
+ResNets (``ResNet_cifar``, depth 6n + 2, a 3x3 stem and no max pool) run
+no kernel: no pool, and no stride-1 1x1 ``ConvBN``.
+
+Not ported yet: the ``s2d`` stem and the ``data_regime`` of
+``regime="mixmatch"`` (it waits for the data pipeline).
 """
 
 from __future__ import annotations
@@ -29,8 +36,8 @@ from torch import nn
 
 from convnet_tpu_torch import ops
 from convnet_tpu_torch.core.module import Sequential
-from convnet_tpu_torch.nn import (BatchNorm2d, Conv2d, GlobalAvgPool, Linear,
-                                  MaxPool2d)
+from convnet_tpu_torch.nn import (BatchNorm2d, CheckpointModule, Conv2d,
+                                  GlobalAvgPool, Linear, MaxPool2d, SEBlock)
 from convnet_tpu_torch.ops.kernels import _prepared
 from convnet_tpu_torch.ops.kernels.matmul_fused import conv1x1_bn_act
 from convnet_tpu_torch.regimes import schedules
@@ -88,15 +95,18 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
-                 zero_init_residual=False):
+                 se_reduction=None, zero_init_residual=False):
         super().__init__()
         self.cb1 = ConvBN(inplanes, planes, 3, stride, 1, groups=groups)
         self.cb2 = ConvBN(planes, planes, 3, 1, 1, groups=groups, relu=False,
                           zero_init_gamma=zero_init_residual)
+        self.se = SEBlock(planes, se_reduction) if se_reduction else None
         self.downsample = downsample
 
     def forward(self, x):
         out = self.cb2(self.cb1(x))
+        if self.se is not None:
+            out = self.se(out)
         identity = x if self.downsample is None else self.downsample(x)
         return ops.relu(out + identity)
 
@@ -105,35 +115,49 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
-                 zero_init_residual=False):
+                 se_reduction=None, zero_init_residual=False):
         super().__init__()
         self.cb1 = ConvBN(inplanes, planes, 1)
         self.cb2 = ConvBN(planes, planes, 3, stride, 1, groups=groups)
         self.cb3 = ConvBN(planes, planes * self.expansion, 1, relu=False,
                           zero_init_gamma=zero_init_residual)
+        self.se = (SEBlock(planes * self.expansion, se_reduction)
+                   if se_reduction else None)
         self.downsample = downsample
 
     def forward(self, x):
         out = self.cb3(self.cb2(self.cb1(x)))
+        if self.se is not None:
+            out = self.se(out)
         identity = x if self.downsample is None else self.downsample(x)
         return ops.relu(out + identity)
 
 
 def _make_layer(block_cls, inplanes, planes, num_blocks, stride=1, groups=1,
-                zero_init_residual=False):
+                se_reduction=None, zero_init_residual=False, remat=False):
     out_ch = planes * block_cls.expansion
     downsample = None
     if stride != 1 or inplanes != out_ch:
         downsample = ConvBN(inplanes, out_ch, 1, stride, relu=False)
-    blocks = [block_cls(inplanes if i == 0 else out_ch, planes,
-                        stride=stride if i == 0 else 1,
-                        downsample=downsample if i == 0 else None,
-                        groups=groups, zero_init_residual=zero_init_residual)
-              for i in range(num_blocks)]
+    blocks = []
+    for i in range(num_blocks):
+        b = block_cls(inplanes if i == 0 else out_ch, planes,
+                      stride=stride if i == 0 else 1,
+                      downsample=downsample if i == 0 else None,
+                      groups=groups, se_reduction=se_reduction,
+                      zero_init_residual=zero_init_residual)
+        blocks.append(CheckpointModule(b) if remat else b)
     return Sequential(*blocks), out_ch
 
 
-class ResNet_imagenet(nn.Module):
+class ResNet(nn.Module):
+    """The shared trunk; the ImageNet and CIFAR subclasses make the stem."""
+
+    def forward(self, x):
+        return self.fc(self.pool(self.layers(self.stem(x))))
+
+
+class ResNet_imagenet(ResNet):
     DEPTHS = {
         18: (BasicBlock, [2, 2, 2, 2]),
         34: (BasicBlock, [3, 4, 6, 3]),
@@ -144,12 +168,16 @@ class ResNet_imagenet(nn.Module):
 
     def __init__(self, depth=50, num_classes=1000, width=None, block=None,
                  layers=None, regime="normal", batch_size=256, epochs=90,
-                 groups=1, zero_init_residual=False):
+                 groups=1, zero_init_residual=False, se_reduction=None,
+                 remat=False):
         super().__init__()
         if block is None or layers is None:
             if depth not in self.DEPTHS:
-                raise ValueError(f"unknown ImageNet ResNet depth {depth} "
-                                 f"(have {sorted(self.DEPTHS)})")
+                raise ValueError(
+                    f"unknown ImageNet ResNet depth {depth} (have "
+                    f"{sorted(self.DEPTHS)}); CIFAR-style 6n+2 depths "
+                    f"(8, 20, 32, ...) need dataset='cifar10'/'cifar100' "
+                    f"in the model config")
             block, layers = self.DEPTHS[depth]
         width = width or [64, 128, 256, 512]
         self.stem = Sequential(ConvBN(3, width[0], 7, 2, 3),
@@ -157,9 +185,13 @@ class ResNet_imagenet(nn.Module):
         stages = []
         inplanes = width[0]
         for i, (planes, n) in enumerate(zip(width, layers)):
+            # remat: a bool (every stage) or the names of the stages to wrap
+            stage_remat = (remat if isinstance(remat, bool)
+                           else f"layer{i + 1}" in remat)
             stage, inplanes = _make_layer(
                 block, inplanes, planes, n, stride=1 if i == 0 else 2,
-                groups=groups, zero_init_residual=zero_init_residual)
+                groups=groups, se_reduction=se_reduction,
+                zero_init_residual=zero_init_residual, remat=stage_remat)
             stages.append(stage)
         self.layers = Sequential(
             *stages, names=[f"layer{i + 1}" for i in range(len(stages))])
@@ -167,9 +199,6 @@ class ResNet_imagenet(nn.Module):
         self.fc = Linear(inplanes, num_classes)
         self.input_size = 224
         self.regime = self._make_regime(regime, batch_size, epochs)
-
-    def forward(self, x):
-        return self.fc(self.pool(self.layers(self.stem(x))))
 
     def _make_regime(self, name, batch_size, epochs):
         wd = weight_decay_config(1e-4)
@@ -237,14 +266,63 @@ class ResNet_imagenet(nn.Module):
         ]
 
 
+class ResNet_cifar(ResNet):
+    """CIFAR ResNet of depth 6n + 2 (the JAX package's ``ResNet_cifar``):
+    a 3x3/s1 stem ``ConvBN``, no max pool, three stages of n blocks at
+    widths 16, 32, 64 times ``width_factor`` and strides 1, 2, 2. ``remat``
+    is a bool here: any true value wraps every block, as in the JAX
+    package."""
+
+    def __init__(self, depth=20, num_classes=10, width_factor=1,
+                 se_reduction=None, zero_init_residual=False, remat=False,
+                 block=BasicBlock):
+        super().__init__()
+        n = (depth - 2) // 6
+        w = 16 * width_factor
+        self.stem = ConvBN(3, w, 3, 1, 1)
+        stages = []
+        inplanes = w
+        for planes, stride in ((w, 1), (2 * w, 2), (4 * w, 2)):
+            stage, inplanes = _make_layer(
+                block, inplanes, planes, n, stride,
+                se_reduction=se_reduction,
+                zero_init_residual=zero_init_residual, remat=remat)
+            stages.append(stage)
+        self.layers = Sequential(*stages,
+                                 names=["layer1", "layer2", "layer3"])
+        self.pool = GlobalAvgPool()
+        self.fc = Linear(inplanes, num_classes)
+        self.input_size = 32
+        # He et al.'s CIFAR schedule, as the JAX package embeds it
+        self.regime = [
+            {"epoch": 0, "optimizer": "SGD", "lr": 0.1, "momentum": 0.9,
+             "regularizer": weight_decay_config(1e-4)},
+            {"epoch": 81, "lr": 1e-2},
+            {"epoch": 122, "lr": 1e-3},
+            {"epoch": 164, "lr": 1e-4},
+        ]
+
+
 def resnet(**config):
-    """Factory with the JAX package's dataset/depth dispatch (ImageNet only)."""
+    """Factory with the JAX package's dataset/depth dispatch: a dataset
+    whose name holds ``cifar`` gives ``ResNet_cifar`` (100 classes where the
+    name holds ``100``, else 10; depth 20 by default), any other
+    ``ResNet_imagenet`` (1000 classes, depth 50)."""
     dataset = config.pop("dataset", "imagenet")
     if "cifar" in str(dataset):
-        raise NotImplementedError("the CIFAR ResNets are not ported yet")
+        num_classes = config.pop("num_classes",
+                                 100 if "100" in str(dataset) else 10)
+        config.setdefault("depth", 20)
+        return ResNet_cifar(num_classes=num_classes, **config)
     num_classes = config.pop("num_classes", 1000)
     config.setdefault("depth", 50)
     return ResNet_imagenet(num_classes=num_classes, **config)
+
+
+def resnet_se(**config):
+    """``resnet`` with an SE block in every block (reduction 16)."""
+    config.setdefault("se_reduction", 16)
+    return resnet(**config)
 
 
 class ResNeXtBottleneck(Bottleneck):
@@ -261,4 +339,13 @@ def resnext(**config):
     config.setdefault("width", [128, 256, 512, 1024])
     config.setdefault("block", ResNeXtBottleneck)
     config.setdefault("layers", ResNet_imagenet.DEPTHS[config["depth"]][1])
+    return resnet(**config)
+
+
+def wide_resnet(**config):
+    """Wide ResNet for CIFAR: ``ResNet_cifar`` widened by ``width_factor``
+    (WRN-26-4 on CIFAR-10 by default); depth 6n + 2."""
+    config.setdefault("dataset", "cifar10")
+    config.setdefault("width_factor", 4)
+    config.setdefault("depth", 26)
     return resnet(**config)

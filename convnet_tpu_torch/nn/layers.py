@@ -83,7 +83,9 @@ class BatchNorm2d(nn.Module):
     ``running_mean``/``running_var`` buffers. In training it normalises with
     the batch statistics and updates the buffers in place (torch momentum).
     ``zero_init`` sets γ to 0 instead of 1 (a zero-init residual branch);
-    ``reset_parameters`` keeps it."""
+    ``reset_parameters`` keeps it. With ``update_stats`` off (while
+    ``CheckpointModule`` recomputes a block) the buffers stay as they are.
+    """
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1,
                  zero_init=False):
@@ -92,6 +94,7 @@ class BatchNorm2d(nn.Module):
         self.eps = eps
         self.momentum = momentum
         self.zero_init = zero_init
+        self.update_stats = True
         self.weight = nn.Parameter(torch.empty(num_features))
         self.bias = nn.Parameter(torch.empty(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -115,6 +118,8 @@ class BatchNorm2d(nn.Module):
         """Updates the running statistics from a batch's mean and biased
         variance over ``n`` values a channel, as :meth:`forward` does in
         training (for a fused block that computes the moments itself)."""
+        if not self.update_stats:
+            return
         new_mean, new_var = running_update(self.running_mean,
                                            self.running_var, mean, var, n,
                                            self.momentum)
@@ -126,9 +131,10 @@ class BatchNorm2d(nn.Module):
             y, mean, var = ops.batch_norm_train(
                 x, self.weight, self.bias, self.running_mean,
                 self.running_var, momentum=self.momentum, eps=self.eps)
-            with torch.no_grad():
-                self.running_mean.copy_(mean)
-                self.running_var.copy_(var)
+            if self.update_stats:
+                with torch.no_grad():
+                    self.running_mean.copy_(mean)
+                    self.running_var.copy_(var)
             return y
         return ops.batch_norm_inference(x, self.weight, self.bias,
                                         self.running_mean, self.running_var,

@@ -19,15 +19,21 @@ model's device, seeded from ``seed``.
 them, else from ``TrainerConfig``. (The JAX trainer reads them from the
 regime only, so its config fields have no effect there.)
 
-Not ported yet (ROADMAP.md): the telemetry watcher and ``data_time``,
-mid-epoch resume, meshes, sync-BN, ZeRO, the low-precision all-reduce and
-the flattened optimizer update.
+A run saves and resumes through ``checkpoint_dict`` and ``load_checkpoint``
+(the npz archive of ``utils/checkpoint.py``, readable by the JAX package);
+``train_epoch(start_batch=, step_hook=)`` resumes inside an epoch, and
+``set_watcher`` streams one JSON line a step.
+
+Not ported yet (ROADMAP.md): meshes, sync-BN, ZeRO, the low-precision
+all-reduce and the flattened optimizer update.
 """
 
 from __future__ import annotations
 
+import base64
 import collections
 import dataclasses
+import json
 import logging
 import time
 from typing import Optional
@@ -47,6 +53,9 @@ from convnet_tpu_torch.train.losses import CrossEntropyLoss
 from convnet_tpu_torch.train.meters import (AccuracyMeter, AverageMeter,
                                             correct_topk)
 from convnet_tpu_torch.train.mixup import CutMix, MixUp
+from convnet_tpu_torch.utils.checkpoint import (adapt_opt_state,
+                                                slots_to_tree, tree_to_slots)
+from convnet_tpu_torch.utils.from_jax import from_jax_params, to_jax_params
 from convnet_tpu_torch.utils.param_filter import wd_mask
 
 log = logging.getLogger(__name__)
@@ -96,6 +105,24 @@ class Trainer:
         self.epoch = 0
         self.training_steps = 0
         self.opt_state = None
+        self._watcher = None
+
+    def set_watcher(self, path_or_file):
+        """Live telemetry: ``train_epoch`` appends one JSON line a step with
+        the JAX trainer's keys (``epoch``, ``step``, ``loss``,
+        ``grad_norm``, ``lr``, ``step_time``, ``data_time``) to a path (opened
+        for appending) or an open file. The line is written when the step's
+        metrics are read, two steps late, so the watcher adds no wait on the
+        device; ``step`` and ``lr`` are that step's own. ``None`` closes
+        it."""
+        if path_or_file is None:
+            if self._watcher is not None:
+                self._watcher.close()
+            self._watcher = None
+        elif hasattr(path_or_file, "write"):
+            self._watcher = path_or_file
+        else:
+            self._watcher = open(path_or_file, "a")
 
     def initialize(self, state_dict=None):
         """Draws the model's weights from ``seed``, or loads
@@ -239,13 +266,30 @@ class Trainer:
         torch._foreach_mul_(grads, self.opt_state["agn_scale"])
 
     def train_epoch(self, loader, epoch: int,
-                    steps_per_epoch: Optional[int] = None):
+                    steps_per_epoch: Optional[int] = None,
+                    start_batch: int = 0, step_hook=None):
         """One epoch over ``loader``, any iterable of (x, y) batches.
         Returns the epoch's loss, top-1/top-5 accuracy (%), mean gradient
-        norm, step times (host clock) and images per second."""
+        norm, step and data times (host clock) and images per second.
+
+        ``start_batch``: skips the first K batches (a resume inside the
+        epoch; the loader must give the same batches again). A skipped batch
+        draws nothing from any generator (no λ, cutmix box or dropout mask)
+        and moves neither ``training_steps`` nor the regime, so a trainer
+        loaded from a checkpoint taken after batch K goes on as the
+        uninterrupted run did. The results cover the remaining batches.
+
+        ``step_hook(trainer, batch_idx)``: called after each step with this
+        trainer and the number of the epoch's batches done (``i + 1``), to
+        save a checkpoint with :meth:`checkpoint_dict`, for instance. (The
+        JAX trainer passes ``(params, state, opt_state, i + 1)``: the port's
+        trainer holds its state itself.)
+
+        ``data_time`` is the host time from the end of one step to the start
+        of the next: the loader's."""
         self.epoch = epoch
         meters = {k: AverageMeter() for k in ("loss", "grad_norm",
-                                              "step_time")}
+                                              "step_time", "data_time")}
         acc = AccuracyMeter()
         step_times = []
         spe = steps_per_epoch or getattr(loader, "__len__", lambda: None)()
@@ -254,31 +298,48 @@ class Trainer:
         pending = collections.deque()
 
         def drain():
-            m, n, st = pending.popleft()
-            meters["loss"].update(float(m["loss"]), n)
-            meters["grad_norm"].update(float(m["grad_norm"]))
+            m, n, st, dt, step = pending.popleft()
+            loss, grad_norm = float(m["loss"]), float(m["grad_norm"])
+            meters["loss"].update(loss, n)
+            meters["grad_norm"].update(grad_norm)
             meters["step_time"].update(st)
+            meters["data_time"].update(dt)
             step_times.append(st)
             acc.update((float(m["correct1"]), float(m["correct5"])), n)
+            if self._watcher is not None:
+                self._watcher.write(json.dumps({
+                    "epoch": epoch, "step": step, "loss": loss,
+                    "grad_norm": grad_norm, "lr": m["lr"], "step_time": st,
+                    "data_time": dt}) + "\n")
+                self._watcher.flush()
 
         samples = 0
-        t_epoch = time.perf_counter()
+        t_epoch = t_last = time.perf_counter()
         for i, (x, y) in enumerate(loader):
-            t_step = time.perf_counter()
+            if i < start_batch:
+                t_last = time.perf_counter()
+                continue
+            t_data = time.perf_counter()
             if self.optim.update(epoch + (i / spe if spe else 0),
                                  self.training_steps):
                 log.info("optimizer switched to %s",
                          self.optim.optimizer_name)
             metrics = self.train_step(x, y)
             samples += len(x)
-            pending.append((metrics, len(x), time.perf_counter() - t_step))
+            if step_hook is not None:
+                step_hook(self, i + 1)
+            t_step = time.perf_counter()
+            pending.append((metrics, len(x), t_step - t_data,
+                            t_data - t_last, self.training_steps))
             while len(pending) > 2:
                 drain()
             if self.cfg.print_freq and i % self.cfg.print_freq == 0:
                 log.info("epoch %d step %d/%s loss %.4f prec1 %.2f prec5 "
-                         "%.2f lr %.4g", epoch, i, spe or "?",
-                         meters["loss"].avg, acc.value(1), acc.value(5),
-                         self.hyperparams()["lr"])
+                         "%.2f lr %.4g step_time %.3fs data_time %.3fs",
+                         epoch, i, spe or "?", meters["loss"].avg,
+                         acc.value(1), acc.value(5), metrics["lr"],
+                         meters["step_time"].avg, meters["data_time"].avg)
+            t_last = time.perf_counter()
         while pending:
             drain()
         epoch_time = time.perf_counter() - t_epoch
@@ -288,8 +349,83 @@ class Trainer:
                 # p50 past the first step, which pays the start-up
                 "step_time_p50": float(np.median(step_times[1:] or step_times
                                                  or [0.0])),
+                "data_time": meters["data_time"].avg,
                 "epoch_time": epoch_time,
                 "img_per_sec": samples / max(epoch_time, 1e-9)}
+
+    def checkpoint_dict(self, **meta):
+        """What ``utils.checkpoint.save_checkpoint`` writes for this
+        trainer: the weights and BN statistics (``params``, ``state``) and
+        the optimizer state (``step``, each slot as a tree like ``params``,
+        ``agn_scale``) in the JAX package's names and layouts, host copies
+        made before this returns; ``epoch`` and ``training_steps``; the
+        regime's position; and ``streams``, the states of the dropout
+        generator and of the mixup or cutmix sampler (the counterpart of the
+        JAX checkpoint's ``rng``). ``meta`` adds entries (``model``,
+        ``config``, ``batch_idx``, ``best_prec1``, ...) or overrides
+        ``epoch``."""
+        params, state = to_jax_params(self.model.state_dict())
+        opt = {}
+        for slot, v in self.opt_state.items():
+            if slot == "step":
+                opt[slot] = np.int32(v)
+            elif isinstance(v, list):
+                opt[slot] = slots_to_tree(self.model, v)
+            else:
+                opt[slot] = v.detach().float().cpu().numpy()
+        gen = self.dropout_generator.get_state()
+        streams = {"dropout": {"device": self.device.type,
+                               "state": base64.b64encode(
+                                   gen.numpy().tobytes()).decode()}}
+        if self.mix is not None:
+            streams["mix"] = self.mix.rng.bit_generator.state
+        return {"epoch": self.epoch, "training_steps": self.training_steps,
+                "regime": self.optim.state_dict(), "streams": streams,
+                **meta, "params": params, "state": state, "opt_state": opt}
+
+    def load_checkpoint(self, ckpt):
+        """Restores a checkpoint (``utils.checkpoint.load_checkpoint``'s
+        dict, written by the port or by the JAX package; an uninitialised
+        trainer is initialised first): the weights and BN statistics, the
+        optimizer state fitted to the current regime's slots
+        (``adapt_opt_state``), ``epoch``, ``training_steps`` and, from a port
+        checkpoint, the regime's position and the generators' states. A JAX
+        checkpoint's ``rng`` key cannot drive the port's streams: after one,
+        dropout and mixup draw from this trainer's own seed, so an exact
+        replay of the uninterrupted run holds from port to port only."""
+        if self.opt_state is None:
+            self.initialize()
+        self.model.load_state_dict(from_jax_params(ckpt["params"],
+                                                   ckpt["state"]))
+        if ckpt.get("opt_state") is not None:
+            template = {k: (slots_to_tree(self.model, v)
+                            if isinstance(v, list) else v)
+                        for k, v in self.opt_state.items()}
+            fitted = adapt_opt_state(ckpt["opt_state"], template)
+            for slot, v in fitted.items():
+                if isinstance(v, dict):
+                    self.opt_state[slot] = tree_to_slots(self.model, v)
+                elif slot == "step":
+                    self.opt_state[slot] = int(np.asarray(v))
+                else:
+                    self.opt_state[slot] = torch.as_tensor(
+                        np.asarray(v, np.float32), device=self.device)
+        self.epoch = int(ckpt.get("epoch", 0))
+        self.training_steps = int(ckpt.get("training_steps", 0))
+        if ckpt.get("regime"):
+            self.optim.load_state_dict(ckpt["regime"])
+        streams = ckpt.get("streams") or {}
+        dropout = streams.get("dropout")
+        if dropout and dropout["device"] == self.device.type:
+            self.dropout_generator.set_state(torch.frombuffer(
+                bytearray(base64.b64decode(dropout["state"])),
+                dtype=torch.uint8))
+        elif dropout:
+            log.warning("the checkpoint's dropout generator ran on %s, this "
+                        "trainer's on %s: it keeps its own seed's stream",
+                        dropout["device"], self.device.type)
+        if streams.get("mix") and self.mix is not None:
+            self.mix.rng.bit_generator.state = streams["mix"]
 
     @torch.no_grad()
     def validate(self, loader):

@@ -1,1 +1,2 @@
-"""BN folding and weight import from the JAX package's pytrees."""
+"""BN folding, weight import from the JAX package's pytrees, npz
+checkpoints, logging and seeding."""

@@ -28,6 +28,8 @@ def _leaves(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
             yield from _leaves(v, prefix + (str(k),))
+        elif isinstance(v, torch.Tensor):     # a bfloat16 leaf of a checkpoint
+            yield prefix + (str(k),), v.detach().float().numpy()
         else:
             yield prefix + (str(k),), np.asarray(v)
 
@@ -51,35 +53,53 @@ def from_jax_params(params, state=None) -> dict:
     return out
 
 
+def bn_modules(state_dict):
+    """The modules of ``state_dict`` that are BatchNorms (they hold a
+    ``running_mean``)."""
+    return {k.rsplit(".", 1)[0] for k in state_dict
+            if k.endswith("running_mean")}
+
+
+def jax_name(key, ndim, bns):
+    """Where the port's ``state_dict`` entry ``key`` of ``ndim`` dimensions
+    lives in the JAX package: (``"params"`` or ``"state"``, its path as a
+    tuple, the transpose from the port's layout to JAX's or None). ``bns``:
+    :func:`bn_modules` of the state dict; a ``bias`` beside a
+    ``running_mean`` is a BatchNorm β (``bias``), any other a layer's bias
+    (``b``)."""
+    *path, leaf = key.split(".")
+    tree, perm = "params", None
+    if leaf == "running_mean":
+        tree, leaf = "state", "mean"
+    elif leaf == "running_var":
+        tree, leaf = "state", "var"
+    elif leaf == "weight" and ndim == 4:
+        leaf, perm = "w", (2, 3, 1, 0)                 # OIHW → HWIO
+    elif leaf == "weight" and ndim == 2:
+        leaf, perm = "w", (1, 0)                       # (out, in) → (in, out)
+    elif leaf == "weight":
+        leaf = "scale"                                 # BN γ
+    elif leaf == "bias" and ".".join(path) not in bns:
+        leaf = "b"
+    elif leaf != "bias":
+        raise KeyError(f"no JAX name for port entry {key} of {ndim} "
+                       f"dimensions")
+    return tree, tuple(path) + (leaf,), perm
+
+
 def to_jax_params(state_dict) -> tuple[dict, dict]:
     """The inverse of :func:`from_jax_params`: a port ``state_dict`` →
     (``params``, ``state``), nested dicts of float32 numpy arrays in the JAX
-    package's names and layouts. A ``bias`` beside a ``running_mean`` is a
-    BatchNorm β (``bias``); any other is a layer's bias (``b``)."""
-    params, state = {}, {}
-    bn_modules = {k.rsplit(".", 1)[0] for k in state_dict
-                  if k.endswith("running_mean")}
+    package's names and layouts (:func:`jax_name`)."""
+    trees = {"params": {}, "state": {}}
+    bns = bn_modules(state_dict)
     for key, value in state_dict.items():
-        *path, leaf = key.split(".")
         arr = np.array(value.detach().cpu().float().numpy())  # a copy
-        module = ".".join(path)
-        tree = params
-        if leaf == "running_mean":
-            tree, leaf = state, "mean"
-        elif leaf == "running_var":
-            tree, leaf = state, "var"
-        elif leaf == "weight" and arr.ndim == 4:
-            leaf, arr = "w", arr.transpose(2, 3, 1, 0)   # OIHW → HWIO
-        elif leaf == "weight" and arr.ndim == 2:
-            leaf, arr = "w", arr.T                      # (out, in) → (in, out)
-        elif leaf == "weight":
-            leaf = "scale"                              # BN γ
-        elif leaf == "bias" and module not in bn_modules:
-            leaf = "b"
-        elif leaf != "bias":
-            raise KeyError(f"no JAX name for port entry {key} of shape "
-                           f"{tuple(arr.shape)}")
-        for part in path:
-            tree = tree.setdefault(part, {})
-        tree[leaf] = np.ascontiguousarray(arr)
-    return params, state
+        tree, path, perm = jax_name(key, arr.ndim, bns)
+        if perm is not None:
+            arr = arr.transpose(perm)
+        node = trees[tree]
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return trees["params"], trees["state"]

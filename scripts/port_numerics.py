@@ -52,6 +52,13 @@ and of the float32 card-against-CPU check in chip_smoke.py:
                 BatchNorm in float64 too, against the port's float64 step
                 and the JAX float32 step (run this part alone: it turns on
                 JAX's 64-bit mode for the rest of the process)
+  cifar_se      the nets of tests/test_torch_port_cifar_se.py (ResNet-20 on
+                CIFAR-10 and CIFAR-100, a narrow SE-ResNet-50 and an SE
+                ResNet-20, 32x32) at batch 8 and 16: each port step from the
+                JAX trainer's state against its float64 step and against the
+                JAX step (loss, updates in norm: all, worst tensor over its
+                update's norm plus 1e-4 of all updates' norm; BN statistics);
+                the eval logits; the SE blocks alone in float32 and bf16
   mobilenet_v2_float64
                 the same net's loss gradient at batch 8, the JAX model under
                 a float64 policy (64-bit JAX; and once more with its
@@ -67,7 +74,7 @@ take the most):
     JAX_PLATFORMS=cpu PYTHONPATH=.:tests python scripts/port_numerics.py \
         [sensitivity jax bf16_step bf16 float64 oscillation resnext
          mobilenet mobilenet_v2 trainer_features trainer_features_float64
-         mobilenet_v2_float64]
+         mobilenet_v2_float64 cifar_se]
 """
 
 import copy
@@ -658,12 +665,74 @@ def trainer_features_float64():
                   f"{errs[1]:.3g}, worst element {errs[2]:.3g}", flush=True)
 
 
+def cifar_se():
+    import test_torch_port_cifar_se as C
+    for kind, (jax_cls, cls) in (("relu", (C.JaxSEBlock, C.SEBlock)),
+                                 ("swish", (C.JaxSESwishBlock,
+                                            C.SESwishBlock))):
+        blk = jax_cls(64, 16)
+        params, _ = blk.init(jax.random.PRNGKey(1))
+        x = np.random.default_rng(2).standard_normal(
+            (3, 6, 5, 64)).astype(np.float32)
+        mod = cls(64, 16)
+        mod.load_state_dict(C.from_jax_params(C._numpy(params)))
+        for jdt, tdt in ((jnp.float32, torch.float32),
+                         (jnp.bfloat16, torch.bfloat16)):
+            ref = np.asarray(blk(params, {}, jnp.asarray(x, jdt),
+                                 C.Context(train=False))[0]
+                             .astype(jnp.float32))
+            with torch.no_grad():
+                out = mod(torch.from_numpy(x).to(tdt)).float().numpy()
+            print(f"SE {kind} {tdt}: max |port - JAX| / max |JAX| "
+                  f"{np.abs(out - ref).max() / np.abs(ref).max():.3g}")
+    nets = dict(C.STEP_NETS, wide_resnet_10_2=C.WIDE)
+    for net, (name, config) in nets.items():
+        params, state = C.jax_init(name, config, redraw_stats=True)
+        ref, out = C.eval_logits(name, config, params, state, C.images(4, 1))
+        print(f"{net}: eval logits {np.abs(out - ref).max() / np.abs(ref).max():.3g}"
+              " of the largest")
+    for net, (name, config) in C.STEP_NETS.items():
+        for batch in (8, 16):
+            for i, (before, j_loss, j_after, loss, p_after) in enumerate(
+                    C.run_steps(name, config, batch=batch)):
+                total, tensors, stats = C.step_errors(before, j_after,
+                                                      p_after)
+                worst = max(tensors, key=tensors.get)
+                model = models.build(name, **config)
+                tr = Trainer(model, OptimRegime(model.regime),
+                             C.num_classes(name, config),
+                             TrainerConfig(print_freq=0), device="cpu")
+                tr.initialize(C.from_jax_params(before[0], before[1]))
+                mu = C.from_jax_params(before[2])
+                tr.opt_state["mu"] = [mu[k].clone() for k, _ in
+                                      tr.model.named_parameters()]
+                x, y = C.batches(C.STEPS, batch,
+                                 C.num_classes(name, config))[i]
+                p0 = {k: v.detach().double().clone()
+                      for k, v in tr.model.named_parameters()}
+                l64 = _double_step(tr, x, y)
+                u64 = {k: (v.detach().double() - p0[k]).numpy()
+                       for k, v in tr.model.named_parameters()}
+                w0 = C.from_jax_params(before[0])
+                u32 = {k: (v.double() - w0[k].double()).numpy()
+                       for k, v in C.from_jax_params(p_after[0]).items()}
+                e64 = _update_errs(u32, u64, floor=1e-4)
+                print(f"{net}, batch {batch}, step {i + 1}: against JAX: "
+                      f"loss {abs(loss - j_loss) / j_loss:.3g}, updates in "
+                      f"norm {total:.3g}, worst tensor {worst} "
+                      f"{tensors[worst]:.3g}, BN statistics {stats:.3g}; "
+                      f"the port's float32 against its float64: loss "
+                      f"{abs(loss - l64) / l64:.3g}, updates in norm "
+                      f"{e64[0]:.3g}, worst tensor {e64[1]:.3g}",
+                      flush=True)
+
+
 PARTS = {"sensitivity": sensitivity, "jax": jax_steps, "bf16_step": bf16_step,
          "bf16": bf16_blocks, "float64": float64, "oscillation": oscillation,
          "resnext": resnext, "mobilenet": mobilenet,
          "mobilenet_v2": mobilenet_v2, "trainer_features": trainer_features,
          "trainer_features_float64": trainer_features_float64,
-         "mobilenet_v2_float64": mobilenet_v2_float64}
+         "mobilenet_v2_float64": mobilenet_v2_float64, "cifar_se": cifar_se}
 
 if __name__ == "__main__":
     torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))

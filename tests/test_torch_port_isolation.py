@@ -1,4 +1,5 @@
-"""The port stands alone: it never imports JAX or the JAX package."""
+"""The port stands alone: it never imports JAX or the JAX package, nor
+``ml_dtypes``, which the card's machine does not have."""
 
 import ast
 import pathlib
@@ -14,9 +15,11 @@ SOURCES = sorted(p for p in PACKAGE.rglob("*.py")
                  if "_build" not in p.relative_to(PACKAGE).parts)
 
 
+FORBIDDEN = ("jax", "jaxlib", "convnet_tpu", "ml_dtypes")
+
+
 def _is_forbidden(module: str) -> bool:
-    root = module.split(".")[0]
-    return root in ("jax", "jaxlib", "convnet_tpu")
+    return module.split(".")[0] in FORBIDDEN
 
 
 def test_importing_the_port_loads_no_jax():
@@ -27,7 +30,7 @@ def test_importing_the_port_loads_no_jax():
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'convnet_tpu'))\n"
+            f"{FORBIDDEN!r})\n"
             "print(len(sys.modules), bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
