@@ -14,10 +14,15 @@ ResNet-50, SE-ResNet-50, ResNeXt-50 32x4d, MobileNet v1 and MobileNet-V2;
 four more training paths of ResNet-50 (large-batch LARS, batch
 augmentation, remat of every stage and of the first); and the CIFAR
 ResNets (ResNet-20, WRN-26-4) through a checkpoint, a mid-epoch resume
-and serving from the checkpoint.
+and serving from the checkpoint; and the port's command-line trainer
+(``python -m convnet_tpu_torch.cli.main``, called in process) on datasets:
+ResNet-50 from synthetic ImageNet and from JPEG files, ResNet-20 from a
+CIFAR-shaped one.
 
 1. card: name and power limit; the CUDA kernels are built with nvcc, one
-   process per source, all started together.
+   process per source, all started together, and the input pipeline's host
+   libraries with g++ beside them (``dataio``, which must build, and
+   ``jpegdec``, which needs libjpeg: without it the loader takes PIL).
 2. kernels: every kernel is held against its plain PyTorch version on the
    card at each shape the four models' paths give it (serving: batch 64
    and 1; the stem pools: batch 128 and 1; the grouped conv at ResNeXt-50's
@@ -78,7 +83,25 @@ and serving from the checkpoint.
    hold 20 and 10 lines. ``Predictor.from_checkpoint`` of the final
    checkpoint answers requests of 64, 17 and 1 within the bf16 serving
    tolerance of the trainer's model. No kernel runs on this path.
-5. summary: one ``{"kernels": [...]}`` line, the card line, and as the last
+   4k. the CLI, in process, cuDNN deterministic. ResNet-50 on
+   synthetic_imagenet (2048 train and 2048 val images of 224² uint8 from the
+   seed, on the threaded loader with PIL's RandomResizedCrop, batches staged
+   in pinned memory), bf16, batch 128, one epoch of 16 steps and a validate
+   of 16 batches, ``--save-freq 8``: one pool launch each way a step, 33
+   fused 1x1 launches and one pool forward a validate forward; the step p50
+   (host clock and CUDA events), img/s and data_time's share beside phase
+   4b's step. A second run ``--resume``s from the checkpoint saved after
+   batch 8 and must end bit-equal to the first; ``--evaluate`` of the final
+   checkpoint must give the run's last validation loss within the bf16
+   serving tolerance. ResNet-50 on an ImageFolder of 256 + 128 JPEGs at
+   256x320 in 4 classes, written by the phase, batch 64: the decoder the
+   loader took and why; where the native decoder built, its eval decode
+   within 1 LSB of PIL's; ``predict_jpeg`` on 17 files gives the top-1 of
+   ``Predictor.__call__`` on the same decoded batch. ResNet-20 on
+   ``synthetic`` (the card-resident ArrayBatcher, the device flip and
+   pad-crop), bf16, batch 128: no kernel.
+5. summary: one ``{"kernels": [...]}`` line (each kernel's launches by path,
+   the CLI's among them), the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; a hang dumps every
@@ -268,6 +291,20 @@ CIFAR_BATCHES, CIFAR_SAVE_AT, CIFAR_BATCH = 20, 10, 128
 # SERVE_TOL["bf16"], float32 within SERVE_TOL["float32"]
 WATCH_KEYS = {"epoch", "step", "loss", "grad_norm", "lr", "step_time",
               "data_time"}
+# phase 4k: the port's CLI, in process. ResNet-50 on synthetic_imagenet (2048
+# train and 2048 val images of 224² uint8 from the seed: 16 steps and a
+# validate of 16 batches at batch 128), resumed from the checkpoint saved
+# after CLI_SAVE_AT batches; ResNet-50 on an ImageFolder of JPEGs the phase
+# writes (CLI_FOLDER: images a split, classes, height, width); ResNet-20 on
+# synthetic (CIFAR-shaped: the card-resident ArrayBatcher)
+CLI_BATCH, CLI_SAVE_AT, CLI_STEPS = 128, 8, 16
+CLI_FOLDER = {"train": 256, "val": 128, "classes": 4, "h": 256, "w": 320}
+CLI_FOLDER_BATCH, CLI_PREDICT = 64, 17
+# native eval decode against PIL's (tests/test_native_jpeg.py): at most 1
+# LSB apart, and most pixels equal
+LSB_SHARE = 0.8
+# STEP_P50_MS: phase 4b's bf16 step p50 (host clock) by model, for 4k
+STEP_P50_MS = {}
 
 T0 = time.perf_counter()
 
@@ -1127,6 +1164,53 @@ def _plain_name(name):
     return name.replace(".module.", ".")
 
 
+# phase 4a's float32 steps held against the CPU: (tag, TrainerConfig
+# fields, duplicates, model overrides); their CPU halves run while the
+# kernels build (``cpu_step``)
+CPU_CHECKS = (("resnet50", None, 1, {}), ("resnet_se50", None, 1, {}),
+              ("mobilenet_v1", None, 1, {}),
+              ("mobilenet_v2", None, 1, {"dropout": 0.0}),
+              ("resnet50", {"chunk_batch": 2}, 1,
+               {"regime": "large_lars", "batch_size": LARGE_BATCH}),
+              ("resnet50", {**BATCH_AUG, "adapt_grad_norm": 1},
+               BATCH_AUG["duplicates"], {}))
+
+
+def _check_batch(duplicates):
+    rng = np.random.default_rng(SEED + 1)
+    x = rng.standard_normal((CHECK_BATCH, 224, 224, 3)).astype(np.float32)
+    y = rng.integers(0, 1000, CHECK_BATCH)
+    if duplicates > 1:
+        x, y = augmented_copies(x, duplicates), np.repeat(y, duplicates)
+    return x, y
+
+
+def _one_step(torch, tag, where, x, y, features, overrides):
+    """(loss, updates, BN statistics, initial weights) of one float32 step
+    of model ``tag`` on ``where`` (None: the card), by the unwrapped
+    model's names."""
+    tr = make_trainer(torch, tag, "float32", where, features, **overrides)
+    p0 = {_plain_name(n): q.detach().cpu().clone()
+          for n, q in tr.model.named_parameters()}
+    loss = float(tr.train_step(x, y)["loss"])
+    upd = {_plain_name(n): q.detach().cpu() - p0[_plain_name(n)]
+           for n, q in tr.model.named_parameters()}
+    stats = {_plain_name(n): b.detach().cpu()
+             for n, b in tr.model.named_buffers()}
+    return loss, upd, stats, p0
+
+
+def cpu_step(torch, cpu_steps, tag, features=None, duplicates=1,
+             **overrides):
+    """The CPU half of ``check_step_against_cpu``, kept in ``cpu_steps``."""
+    key = repr((tag, features, duplicates, sorted(overrides.items())))
+    if key not in cpu_steps:
+        x, y = _check_batch(duplicates)
+        cpu_steps[key] = _one_step(torch, tag, "cpu", x, y, features,
+                                   overrides)
+    return cpu_steps[key]
+
+
 def check_step_against_cpu(torch, tag, features=None, duplicates=1,
                            card_model=None, cpu_steps=None, **overrides):
     """Phase 4a: one float32 step on the card and on the CPU from the same
@@ -1138,33 +1222,12 @@ def check_step_against_cpu(torch, tag, features=None, duplicates=1,
     model). ``cpu_steps``: a dict that keeps the CPU's steps for a later
     call with the same arguments. Returns the card's BN statistics after
     the step, by the unwrapped model's names."""
-    rng = np.random.default_rng(SEED + 1)
-    x = rng.standard_normal((CHECK_BATCH, 224, 224, 3)).astype(np.float32)
-    y = rng.integers(0, 1000, CHECK_BATCH)
-    if duplicates > 1:
-        x, y = augmented_copies(x, duplicates), np.repeat(y, duplicates)
-    key = repr((tag, features, duplicates, sorted(overrides.items())))
+    x, y = _check_batch(duplicates)
     cpu_steps = {} if cpu_steps is None else cpu_steps
-    res = {}
-    for where in ("cpu", None):
-        if where == "cpu" and key in cpu_steps:
-            res["cpu"] = cpu_steps[key]
-            continue
-        tr = make_trainer(torch, tag, "float32", where, features,
-                          **overrides,
-                          **((card_model or {}) if where is None else {}))
-        p0 = {_plain_name(n): q.detach().cpu().clone()
-              for n, q in tr.model.named_parameters()}
-        loss = float(tr.train_step(x, y)["loss"])
-        upd = {_plain_name(n): q.detach().cpu() - p0[_plain_name(n)]
-               for n, q in tr.model.named_parameters()}
-        stats = {_plain_name(n): b.detach().cpu()
-                 for n, b in tr.model.named_buffers()}
-        res[where or "cuda"] = (loss, upd, stats, p0)
-        del tr
-    cpu_steps[key] = res["cpu"]
-    (l_cpu, u_cpu, s_cpu, p0_cpu), (l_gpu, u_gpu, s_gpu, p0_gpu) = (
-        res["cpu"], res["cuda"])
+    (l_cpu, u_cpu, s_cpu, p0_cpu) = cpu_step(torch, cpu_steps, tag, features,
+                                             duplicates, **overrides)
+    (l_gpu, u_gpu, s_gpu, p0_gpu) = _one_step(
+        torch, tag, None, x, y, features, {**overrides, **(card_model or {})})
     if p0_cpu.keys() != p0_gpu.keys() or any(
             not torch.equal(p0_cpu[n], p0_gpu[n]) for n in p0_cpu):
         raise RuntimeError("the card and the CPU drew different weights")
@@ -1294,6 +1357,7 @@ def train(torch, card, k, tag):
         raise RuntimeError(f"{tag}: the loss never fell below the first "
                            f"step's {losses[0]}: {losses}")
     p50 = statistics.median(times[1:])
+    STEP_P50_MS[tag] = p50 * 1e3
     emit({"train": f"{tag}_bf16_224", "card": card, "batch": TRAIN_BATCH,
           "steps": steps, "losses": losses,
           "last5_mean_loss": float(np.mean(losses[-5:])),
@@ -1773,6 +1837,310 @@ def train_cifar_resume(torch, card, k):
     return counts(k)
 
 
+class CliProbe:
+    """For in-process CLI runs: CUDA events around each
+    ``Trainer.train_step`` (wrapped for the runs, then put back), each
+    ``train_epoch``'s results, the data loaders' log lines (the decoder
+    each took), and the batch-``CLI_SAVE_AT`` checkpoint copied aside as
+    ``keep``."""
+
+    def __init__(self, torch, keep=None):
+        from convnet_tpu_torch.train.trainer import Trainer
+        from convnet_tpu_torch.utils import checkpoint as ckpt_io
+        self.torch, self.cls, self.ckpt_io, self.keep = (torch, Trainer,
+                                                         ckpt_io, keep)
+        self.events, self.epochs, self.messages = [], [], []
+
+    def __enter__(self):
+        import logging
+        torch, probe = self.torch, self
+        step, epoch = self.cls.train_step, self.cls.train_epoch
+        save = self.ckpt_io.save_checkpoint
+
+        def train_step(tr, x, y):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step(tr, x, y)
+            end.record()
+            probe.events.append((start, end))
+            return m
+
+        def train_epoch(tr, *a, **kw):
+            probe.epochs.append(epoch(tr, *a, **kw))
+            return probe.epochs[-1]
+
+        def save_checkpoint(ckpt, *a, **kw):
+            out = save(ckpt, *a, **kw)
+            if probe.keep and ckpt.get("batch_idx") == CLI_SAVE_AT:
+                probe.ckpt_io.wait_for_pending_save()
+                os.makedirs(os.path.dirname(probe.keep), exist_ok=True)
+                import shutil
+                shutil.copyfile(out, probe.keep)
+            return out
+
+        handler = logging.Handler()
+        handler.emit = lambda record: probe.messages.append(
+            record.getMessage())
+        self.handler = handler
+        self.saved = step, epoch, save
+        logging.getLogger("convnet_tpu_torch.data.loader").addHandler(handler)
+        self.cls.train_step, self.cls.train_epoch = train_step, train_epoch
+        self.ckpt_io.save_checkpoint = save_checkpoint
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+        self.cls.train_step, self.cls.train_epoch = self.saved[:2]
+        self.ckpt_io.save_checkpoint = self.saved[2]
+        logging.getLogger("convnet_tpu_torch.data.loader").removeHandler(
+            self.handler)
+
+    def device_ms(self):
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def _cli_rows(save_dir):
+    with open(os.path.join(save_dir, "results.json")) as f:
+        return json.load(f)
+
+
+def _same_checkpoints(ckpt_io, a, b):
+    """Whether two checkpoints' weights, BN statistics and optimizer state
+    are bit-equal, and the largest difference."""
+    ca, cb = ckpt_io.load_checkpoint(a), ckpt_io.load_checkpoint(b)
+    worst, same = 0.0, True
+    for tree in ("params", "state", "opt_state"):
+        fa = ckpt_io.flatten_tree(ca[tree])
+        fb = ckpt_io.flatten_tree(cb[tree])
+        if fa.keys() != fb.keys():
+            return False, float("inf")
+        for key in fa:
+            x = np.asarray(fa[key], np.float64)
+            y = np.asarray(fb[key], np.float64)
+            same = same and np.array_equal(x, y)
+            if x.size:
+                worst = max(worst, float(np.abs(x - y).max()))
+    return same, worst
+
+
+def write_image_folder(root):
+    """CLI_FOLDER's JPEG ImageFolder: smooth seeded images plus noise,
+    PIL-encoded (quality 90) by a thread pool, in train/ and val/ with a
+    folder a class."""
+    from PIL import Image
+    rng = np.random.default_rng(SEED + 7)
+    h, w, classes = CLI_FOLDER["h"], CLI_FOLDER["w"], CLI_FOLDER["classes"]
+    files, images = {}, []
+    for split in ("train", "val"):
+        files[split] = []
+        for i in range(CLI_FOLDER[split]):
+            c = i % classes
+            low = rng.integers(0, 256, (8, 10, 3)).astype(np.int16)
+            img = np.kron(low, np.ones((h // 8, w // 10, 1), np.int16))
+            img += rng.integers(-24, 25, img.shape, dtype=np.int16)
+            d = os.path.join(root, split, f"class{c}")
+            os.makedirs(d, exist_ok=True)
+            files[split].append(os.path.join(d, f"im{i:04d}.jpg"))
+            images.append(np.clip(img, 0, 255).astype(np.uint8))
+    paths = files["train"] + files["val"]
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda a: Image.fromarray(a[1]).save(a[0], quality=90),
+                      zip(paths, images)))
+    return files
+
+
+def train_cli(torch, card, k):
+    """Phase 4k: ``convnet_tpu_torch.cli.main.main`` in process, cuDNN
+    deterministic. (1) ResNet-50 on synthetic_imagenet, bf16, batch
+    CLI_BATCH, one epoch of CLI_STEPS steps and a validate of 16 batches,
+    ``--save-freq CLI_SAVE_AT``: one pool launch each way a step, 33 fused
+    1x1 launches and one pool forward a validate forward; step p50 (host
+    clock and CUDA events), img/s, data_time's share, beside phase 4b's
+    step. A second run ``--resume``s from the batch-8 checkpoint: its final
+    weights, BN statistics and optimizer state must equal the first run's
+    bit for bit. ``--evaluate`` of the final checkpoint: its loss within
+    the bf16 serving tolerance of the run's last validation. (2) ResNet-50
+    on an ImageFolder of JPEGs: the decoder the loader took, the native
+    eval decode against PIL's (1 LSB), and ``predict_jpeg`` on CLI_PREDICT
+    files against ``Predictor.__call__`` on the same decoded batch. (3)
+    ResNet-20 on synthetic (the card-resident ArrayBatcher, the device
+    flip and pad-crop; no kernel). Returns the phase's launch counts."""
+    from convnet_tpu_torch.cli.main import main as cli_main
+    from convnet_tpu_torch.data import native
+    from convnet_tpu_torch.data.data_regime import DataRegime
+    from convnet_tpu_torch.data.preprocess import scale_crop_host
+    from convnet_tpu_torch.serve import Predictor, predict_jpeg
+    from convnet_tpu_torch.utils import checkpoint as ckpt_io
+    from PIL import Image
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    total = launches()
+    seconds = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+
+    def run(tag, argv, want, keep=None):
+        reset_counts(k)
+        t = time.perf_counter()
+        with CliProbe(torch, keep) as probe:
+            out = cli_main(argv + ["--results-dir", tmp, "--save", tag,
+                                   "--print-freq", "0",
+                                   "--seed", str(SEED)])
+        seconds[tag] = time.perf_counter() - t
+        expect_counts(f"cli {tag}", counts(k), want)
+        torch.cuda.empty_cache()
+        return out, probe
+
+    rn50 = ["--model", "resnet", "--model-config", "{'depth': 50}",
+            "--dtype", "bf16", "--epochs", "1"]
+    try:
+        # (1) ResNet-50 on synthetic_imagenet, saved, resumed, evaluated
+        imagenet = rn50 + ["--dataset", "synthetic_imagenet",
+                           "-b", str(CLI_BATCH)]
+        mid = os.path.join(tmp, "mid", "checkpoint.npz")
+        val_batches = 2048 // CLI_BATCH
+        _, probe = run("full", imagenet + ["--save-freq", str(CLI_SAVE_AT),
+                                           "--tensorwatch"],
+                       launches(33 * val_batches, CLI_STEPS + val_batches,
+                                CLI_STEPS), keep=mid)
+        res = probe.epochs[0]
+        device_ms = probe.device_ms()
+        rows = _cli_rows(os.path.join(tmp, "full"))
+        with open(os.path.join(tmp, "full", "watch.jsonl")) as f:
+            data_ms = [json.loads(line)["data_time"] * 1e3 for line in f]
+        left = CLI_STEPS - CLI_SAVE_AT
+        run("resumed", imagenet + ["--resume", mid],
+            launches(33 * val_batches, left + val_batches, left))
+        exact, worst = _same_checkpoints(
+            ckpt_io, os.path.join(tmp, "full", "checkpoint.npz"),
+            os.path.join(tmp, "resumed", "checkpoint.npz"))
+        resumed_rows = _cli_rows(os.path.join(tmp, "resumed"))
+        ev, _ = run("evaluate", imagenet + [
+            "--evaluate", os.path.join(tmp, "full", "checkpoint.npz")],
+            launches(33 * val_batches, val_batches))
+        total = add_counts(total, launches(
+            3 * 33 * val_batches, CLI_STEPS + left + 3 * val_batches,
+            CLI_STEPS + left))
+        val_loss = rows[-1]["val_loss"]
+        share = res["data_time"] / (res["data_time"] + res["step_time"])
+        rec = {"train": "cli_resnet50_synthetic_imagenet_bf16", "card": card,
+               "batch": CLI_BATCH, "steps": CLI_STEPS,
+               "step_p50_ms": res["step_time_p50"] * 1e3,
+               "step_device_p50_ms": statistics.median(device_ms[1:]),
+               "phase_4b_step_p50_ms": STEP_P50_MS.get("resnet50"),
+               "images_per_s": res["img_per_sec"],
+               "data_time_ms": res["data_time"] * 1e3,
+               "data_time_share": share,
+               "data_time_first_ms": data_ms[0],
+               "data_time_p50_ms": statistics.median(data_ms[1:]),
+               "data_time_max_ms": max(data_ms[1:]),
+               "train_loss": rows[-1]["train_loss"], "val_loss": val_loss,
+               "val_prec1": rows[-1]["val_prec1"],
+               "resumed_val_loss": resumed_rows[-1]["val_loss"],
+               "resume_bit_exact": exact, "resume_max_abs_diff": worst,
+               "evaluate_loss": ev["loss"],
+               "note": "step times: train_epoch's host clock around each "
+                       "step (the metrics are read two steps late) and CUDA "
+                       "events around each train_step, p50 over steps "
+                       f"2-{CLI_STEPS}; data_time: the host time from one "
+                       "step's end to the next's start (the loader's); its "
+                       "share: data_time / (data_time + step_time), means "
+                       "over the epoch; the watcher's per-step data_time: "
+                       "the first step's, and p50 and max over the rest"}
+        emit(rec)
+        if not (np.isfinite(val_loss) and np.isfinite(rows[-1]["train_loss"])
+                and np.isfinite(ev["loss"])):
+            raise RuntimeError(f"cli: non-finite losses {rec}")
+        if not exact:
+            raise RuntimeError(f"cli: the resumed run ends {worst} from the "
+                               f"uninterrupted one, not bit-equal")
+        if abs(ev["loss"] - val_loss) > SERVE_TOL["bf16"] * abs(val_loss):
+            raise RuntimeError(f"cli: --evaluate loss {ev['loss']} against "
+                               f"the run's last validation {val_loss}")
+        log(f"cli ResNet-50: step p50 {rec['step_p50_ms']:.2f} ms host, "
+            f"{rec['step_device_p50_ms']:.2f} ms device (phase 4b "
+            f"{rec['phase_4b_step_p50_ms']}), {res['img_per_sec']:.1f} "
+            f"img/s, data_time share {share:.3f} (p50 "
+            f"{rec['data_time_p50_ms']:.2f} ms, first {data_ms[0]:.1f} ms); "
+            f"resume bit-exact {exact}")
+        DataRegime._dataset_cache.clear()
+
+        # (2) ResNet-50 on an ImageFolder of JPEGs
+        t = time.perf_counter()
+        files = write_image_folder(os.path.join(tmp, "folder"))
+        seconds["write_folder"] = time.perf_counter() - t
+        steps = CLI_FOLDER["train"] // CLI_FOLDER_BATCH
+        val_b = CLI_FOLDER["val"] // CLI_FOLDER_BATCH
+        _, probe = run("folder", rn50 + [
+            "--dataset", "imagenet", "--datasets-dir",
+            os.path.join(tmp, "folder"), "-b", str(CLI_FOLDER_BATCH)],
+            launches(33 * val_b, steps + val_b, steps))
+        total = add_counts(total, launches(33 * val_b, steps + val_b, steps))
+        decoders = sorted({m for m in probe.messages
+                           if m.startswith("data loader:")})
+        status = native.jpeg_status()
+        log(f"cli ImageFolder: {decoders}; the JPEG decoder: {status}")
+        blobs = []
+        for path in files["val"]:
+            with open(path, "rb") as f:
+                blobs.append(f.read())
+        pil = np.stack([scale_crop_host(Image.open(p), None, out_size=224)
+                        for p in files["val"]])
+        lsb = None
+        decoded = pil
+        if status == "native":
+            out, fail = native.decode_blobs(blobs, train=False, out_size=224)
+            diff = np.abs(out.astype(np.int16) - pil.astype(np.int16))
+            lsb = {"max": int(diff.max()), "equal_share":
+                   float((diff == 0).mean()), "failed": int(fail.sum())}
+            if fail.any() or diff.max() > 1 or lsb["equal_share"] < LSB_SHARE:
+                raise RuntimeError(f"cli: native eval decode against PIL: "
+                                   f"{lsb}")
+            decoded = out
+        reset_counts(k)
+        pred = Predictor.from_checkpoint(os.path.join(tmp, "folder"),
+                                         batch_size=SERVE_BATCH)
+        top = predict_jpeg(pred, blobs[:CLI_PREDICT])
+        want = pred(decoded[:CLI_PREDICT]).argmax(-1)
+        expect_counts("cli predict_jpeg and __call__", counts(k),
+                      launches(66, 2))
+        total = add_counts(total, launches(66, 2))
+        emit({"cli_folder": "resnet50_imagefolder_bf16", "card": card,
+              "files": {s: len(v) for s, v in files.items()},
+              "image_hw": [CLI_FOLDER["h"], CLI_FOLDER["w"]],
+              "loader_decoders": decoders, "jpeg_decoder": status,
+              "native_vs_pil_eval_decode": lsb,
+              "predict_jpeg_top1": top.tolist(),
+              "predict_jpeg_matches_call": bool((top == want).all())})
+        if not (top == want).all():
+            raise RuntimeError(f"cli: predict_jpeg {top} against "
+                               f"Predictor.__call__ {want}")
+        del pred
+
+        # (3) ResNet-20 on synthetic: no kernel
+        run("cifar", ["--dataset", "synthetic", "--model", "resnet",
+                      "--model-config", "{'depth': 20}", "--dtype", "bf16",
+                      "--epochs", "1", "-b", str(CLI_BATCH)], launches())
+        rows = _cli_rows(os.path.join(tmp, "cifar"))
+        emit({"cli_cifar": "resnet20_synthetic_bf16", "card": card,
+              "results": rows[-1]})
+        if not np.isfinite(rows[-1]["val_loss"]):
+            raise RuntimeError(f"cli: ResNet-20 {rows}")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+        DataRegime._dataset_cache.clear()
+        import logging
+        import shutil
+        for h in list(logging.getLogger().handlers):
+            logging.getLogger().removeHandler(h)
+            h.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"cli_seconds": seconds})
+    return total
+
+
 def kernel_launches(torch, fn):
     """CUDA kernels (not copies or sets) that one call of ``fn`` launches,
     counted by torch.profiler; None where it recorded no device event (not
@@ -1884,14 +2252,35 @@ def main():
     print(card, flush=True)
     log(f"torch {torch.__version__} CUDA {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+    # the CPU halves of phase 4a's float32 steps run on the host's cores
+    # while nvcc builds; phase 4a waits for them
+    cpu_steps = {}
+    cpu_pool = concurrent.futures.ThreadPoolExecutor(1)
+    cpu_job = cpu_pool.submit(lambda: [
+        cpu_step(torch, cpu_steps, tag, features, duplicates, **overrides)
+        for tag, features, duplicates, overrides in CPU_CHECKS])
+    cpu_pool.shutdown(wait=False)
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS) + 2) as pool:
         builds = {name: pool.submit(_build.build, name) for name in KERNELS}
+        # the input pipeline's host libraries (g++): dataio must build;
+        # jpegdec needs libjpeg, and without it the loader takes PIL
+        hosts = {name: pool.submit(_build.build_host, name)
+                 for name in _build.HOST_LINK}
     for name, job in builds.items():
         lib, build_log = job.result()
         log(f"built {lib.name}")
         for line in build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
+    for name, job in hosts.items():
+        try:
+            lib, _ = job.result()
+            log(f"built {lib.name} (host, g++)")
+        except RuntimeError as e:
+            if name == "dataio":
+                raise
+            log(f"host library {name} not built, the loader decodes with "
+                f"PIL: " + " | ".join(str(e).splitlines()[:4]))
     log(f"built {len(KERNELS)} libraries in {time.perf_counter() - t:.1f}s")
     seconds["build"] = time.perf_counter() - t
 
@@ -1941,18 +2330,11 @@ def main():
 
     # -- 4. train: the second path, counted, model by model
     t = time.perf_counter()
-    cpu_steps = {}
-    stats_plain = check_step_against_cpu(torch, "resnet50",
-                                         cpu_steps=cpu_steps)
-    for tag in ("resnet_se50", "mobilenet_v1"):
-        check_step_against_cpu(torch, tag)
-    check_step_against_cpu(torch, "mobilenet_v2", dropout=0.0)
-    # the two paths of phases 4g and 4h, in float32 at CHECK_BATCH
-    check_step_against_cpu(torch, "resnet50", {"chunk_batch": 2},
-                           regime="large_lars", batch_size=LARGE_BATCH)
-    check_step_against_cpu(torch, "resnet50",
-                           {**BATCH_AUG, "adapt_grad_norm": 1},
-                           duplicates=BATCH_AUG["duplicates"])
+    cpu_job.result()
+    stats = [check_step_against_cpu(torch, tag, features, duplicates,
+                                     cpu_steps=cpu_steps, **overrides)
+             for tag, features, duplicates, overrides in CPU_CHECKS]
+    stats_plain = stats[0]
     train_counts = launches()
     peaks = {}
     for tag in MODELS:
@@ -1980,6 +2362,11 @@ def main():
     t = time.perf_counter()
     path_counts["cifar_resume"] = train_cifar_resume(torch, card, k)
     seconds["cifar_resume"] = time.perf_counter() - t
+
+    # -- 4k. the CLI: datasets, loaders, checkpoints, resume, JPEGs
+    t = time.perf_counter()
+    path_counts["cli"] = train_cli(torch, card, k)
+    seconds["cli"] = time.perf_counter() - t
     seconds["total"] = time.perf_counter() - t0
     emit({"seconds_by_phase": seconds})
 
@@ -1987,8 +2374,8 @@ def main():
     # every row: ms, back-to-back wrapper calls timed with CUDA events (the
     # wrapper's weight casts and copies included); kernel_ms, the kernel
     # alone (its launches replayed from a CUDA graph); launches, the serving,
-    # the training, the large-batch LARS, the batch-augmentation, the remat
-    # and the CIFAR runs together
+    # the training, the large-batch LARS, the batch-augmentation, the remat,
+    # the CIFAR and the CLI runs together
     by_path = {"serve": serve_counts, "train": train_counts, **path_counts}
 
     def row(name, source, replaces, ms, kernel_ms, plain_ms, bound_ms,

@@ -26,8 +26,11 @@ stages named (``("layer1",)``); the CIFAR ResNets take a bool. The CIFAR
 ResNets (``ResNet_cifar``, depth 6n + 2, a 3x3 stem and no max pool) run
 no kernel: no pool, and no stride-1 1x1 ``ConvBN``.
 
-Not ported yet: the ``s2d`` stem and the ``data_regime`` of
-``regime="mixmatch"`` (it waits for the data pipeline).
+``regime="mixmatch"`` adds the model's own ``data_regime``, Mix & Match's
+progressive resizing: input sizes 128, 160, 192 and 224 from 0, 30%, 60%
+and 80% of the epochs (``data/data_regime.py`` rebuilds the loader at each).
+
+Not ported yet: the ``s2d`` stem.
 """
 
 from __future__ import annotations
@@ -199,6 +202,15 @@ class ResNet_imagenet(ResNet):
         self.fc = Linear(inplanes, num_classes)
         self.input_size = 224
         self.regime = self._make_regime(regime, batch_size, epochs)
+        if regime == "mixmatch":
+            # Mix & Match: smaller images early, full size for the last
+            # fifth; eval always runs at full resolution
+            self.data_regime = [
+                {"epoch": 0, "input_size": 128},
+                {"epoch": int(epochs * 0.3), "input_size": 160},
+                {"epoch": int(epochs * 0.6), "input_size": 192},
+                {"epoch": int(epochs * 0.8), "input_size": 224},
+            ]
 
     def _make_regime(self, name, batch_size, epochs):
         wd = weight_decay_config(1e-4)
@@ -239,8 +251,8 @@ class ResNet_imagenet(ResNet):
                 {"epoch": 80, "lr": 0.0001 * batch_size / 256},
             ]
         if name == "mixmatch":
-            # optimizer schedule identical to 'normal'; the JAX package
-            # adds a progressive-resizing data_regime, not ported yet
+            # optimizer schedule identical to 'normal'; the progressive
+            # resizing is the model's data_regime
             return [
                 {"epoch": 0, "optimizer": "SGD", "lr": 0.1, "momentum": 0.9,
                  "regularizer": wd},

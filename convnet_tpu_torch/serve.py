@@ -1,15 +1,16 @@
 """Inference engine (counterpart of convnet_tpu/serve.py:49-280).
 
-``Predictor``: weights (seeded init, the JAX package's pytrees, or an npz
-checkpoint of either package) → BN folded into the convs → one batched
-eval forward in the compute dtype, with requests padded to a fixed batch.
-On the card every 1x1 stride-1 ``ConvBN`` runs the hand-written fused 1x1
-kernel, and each stride-1 inverted residual of MobileNet-V2 the fused
-MBConv kernel.
+``Predictor``: weights (seeded init, the JAX package's pytrees, an npz
+checkpoint of either package, or a convNet.pytorch torch checkpoint through
+``utils/torch_import.py``) → BN folded into the convs → one batched eval
+forward in the compute dtype, with requests padded to a fixed batch. On the
+card every 1x1 stride-1 ``ConvBN`` runs the hand-written fused 1x1 kernel,
+and each stride-1 inverted residual of MobileNet-V2 the fused MBConv kernel.
+``predict_jpeg`` classifies raw JPEG bytes: the native decoder
+(``data/native.py``) or PIL, then the same forward.
 
-Not ported yet: torch checkpoints of convNet.pytorch (``torch_import``),
-``quantize``, ``export``, multi-device serving, ``predict_jpeg`` and the
-HTTP server.
+Not ported yet: ``quantize``, ``export``, multi-device serving and the HTTP
+server.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ from convnet_tpu_torch import models
 from convnet_tpu_torch.core.device import resolve_device
 from convnet_tpu_torch.core.dtypes import get_policy
 from convnet_tpu_torch.core.module import init_parameters
-from convnet_tpu_torch.data.preprocess import DATASET_STATS, default_image_size
+from convnet_tpu_torch.data.preprocess import (DATASET_STATS,
+                                               default_image_size,
+                                               scale_crop_host)
 from convnet_tpu_torch.utils.absorb_bn import search_absorb_bn
 from convnet_tpu_torch.utils.checkpoint import load_checkpoint
 from convnet_tpu_torch.utils.from_jax import from_jax_params
@@ -55,8 +58,9 @@ class Predictor:
         """``checkpoint``: an npz checkpoint (a file or a run directory)
         written by the port or by the JAX package. It records its model's
         name and config, so ``model_name`` may be left out; entries of
-        ``model_config`` override the saved ones. A torch checkpoint of
-        convNet.pytorch is not supported yet.
+        ``model_config`` override the saved ones. Or a torch checkpoint of
+        convNet.pytorch (told apart by content, not suffix), which records
+        no model: it needs ``model_name``.
 
         ``params``/``state``: the JAX package's pytrees (nested dicts of
         arrays) for this architecture. With neither these nor a checkpoint,
@@ -73,12 +77,11 @@ class Predictor:
         ``device``: where the model runs; ``None`` is the CUDA card."""
         self.device = resolve_device(device)
         ckpt = None
-        if checkpoint is not None:
-            if not _is_npz(checkpoint):
-                raise ValueError(
-                    f"{checkpoint}: a torch checkpoint; the port loads npz "
-                    f"checkpoints (of the port or the JAX package) only, "
-                    f"torch_import is not ported yet")
+        torch_checkpoint = checkpoint is not None and not _is_npz(checkpoint)
+        if torch_checkpoint and not model_name:
+            raise ValueError(f"{checkpoint}: a torch checkpoint records no "
+                             f"model: pass model_name")
+        if checkpoint is not None and not torch_checkpoint:
             ckpt = load_checkpoint(checkpoint)
             params, state = ckpt["params"], ckpt.get("state")
             if not model_name:
@@ -93,7 +96,15 @@ class Predictor:
                              "records its model")
         model_config = dict(model_config or {})
         self.model = models.build(model_name, **model_config)
-        if params is not None:
+        if torch_checkpoint:
+            from convnet_tpu_torch.utils.torch_import import (
+                load_torch_checkpoint)
+            try:
+                load_torch_checkpoint(checkpoint, self.model)
+            except ValueError as e:
+                raise ValueError(f"{checkpoint}: a torch checkpoint that "
+                                 f"does not fit {model_name}: {e}") from e
+        elif params is not None:
             self.model.load_state_dict(from_jax_params(params, state))
         else:
             init_parameters(self.model, torch.Generator().manual_seed(seed))
@@ -167,3 +178,35 @@ class Predictor:
 
     def __call__(self, x):
         return self.predict_logits(x)
+
+
+def _decode_jpeg_pil(blob, out_size, scale_size=None):
+    """One JPEG through the training pipeline's eval transform
+    (``scale_crop_host``), so serving does not fork its geometry."""
+    import io
+    from PIL import Image
+    img = Image.open(io.BytesIO(blob))
+    return scale_crop_host(img, None, out_size=out_size,
+                           scale_size=scale_size)
+
+
+def predict_jpeg(predictor: Predictor, blobs, topk: int = 1,
+                 input_size: Optional[int] = None, threads: int = 8):
+    """Classify raw JPEG bytes end to end: the native decode + shorter-side
+    scale + center crop (``csrc/jpegdec.cpp``, within 1 LSB of the PIL eval
+    transform), then the predictor's uint8 path. ``blobs``: an iterable of
+    bytes. PIL decodes every blob when the native library is unavailable,
+    and each blob it fails on. ``input_size`` defaults to the predictor's."""
+    from convnet_tpu_torch.data import native
+    if input_size is None:
+        input_size = predictor.input_size
+    blobs = list(blobs)
+    out = native.decode_blobs(blobs, train=False, out_size=input_size,
+                              threads=threads)
+    if out is None:
+        batch = np.stack([_decode_jpeg_pil(b, input_size) for b in blobs])
+    else:
+        batch, fail = out
+        for j in np.nonzero(fail)[0]:
+            batch[j] = _decode_jpeg_pil(blobs[int(j)], input_size)
+    return predictor.predict(batch, topk=topk)
