@@ -17,7 +17,8 @@ ResNets (ResNet-20, WRN-26-4) through a checkpoint, a mid-epoch resume
 and serving from the checkpoint; and the port's command-line trainer
 (``python -m convnet_tpu_torch.cli.main``, called in process) on datasets:
 ResNet-50 from synthetic ImageNet and from JPEG files, ResNet-20 from a
-CIFAR-shaped one.
+CIFAR-shaped one; and the rest of the model zoo at full width (Inception v3
+at 299² with its aux head first), served and trained.
 
 1. card: name and power limit; the CUDA kernels are built with nvcc, one
    process per source, all started together, and the input pipeline's host
@@ -100,8 +101,24 @@ CIFAR-shaped one.
    ``Predictor.__call__`` on the same decoded batch. ResNet-20 on
    ``synthetic`` (the card-resident ArrayBatcher, the device flip and
    pad-crop), bf16, batch 128: no kernel.
+   4l. the model zoo, bf16, batch 64: Inception v3 (299², with its aux
+   head), GoogLeNet (224², with its aux heads), Inception-v4 and
+   Inception-ResNet-v2 (299²), DenseNet-121, VGG-16 and AlexNet (224²) and
+   the MNIST net (28², one channel). Each answers one request of 64 uint8
+   images, counted (fused 1x1 launches 40, 37, 61, 100 and none; max-pool
+   forwards 4, 13, 4, 4, 1, 5, 3, 2), with finite logits; Inception v3's
+   float32 forward of 2 images on the card against the port's CPU forward.
+   Then it trains under its own regime on one random batch, its aux heads
+   in the loss: 5 steps of Inception v3, 3 of the others, each counted (a
+   pool launch each way per pool, no fused 1x1), with the step p50 (host
+   clock and CUDA events) and peak memory; two more Inception v3 steps
+   under torch.profiler, broken down by kernel group. Phase 2 checks the
+   fused 1x1 at every (M, K, N) of the four Inception-family paths and the
+   pool pair at every pool shape of the zoo's paths (stride 1, 3x3/s2
+   unpadded, 2x2/s2 among them), each against its plain version, and times
+   them.
 5. summary: one ``{"kernels": [...]}`` line (each kernel's launches by path,
-   the CLI's among them), the card line, and as the last
+   the CLI's and the zoo's among them), the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; a hang dumps every
@@ -123,7 +140,7 @@ import time
 
 import numpy as np
 
-HANG_LIMIT_S = 240
+HANG_LIMIT_S = 900
 SEED = 0
 SERVE_BATCH = 64
 REQUESTS = (64, 17, 1)            # images per request; each is one forward
@@ -222,6 +239,28 @@ MODELS = {
     "mobilenet_v2": ("mobilenet_v2", {}, launches(9, depthwise=4, mb_full=13),
                      launches(depthwise=4 + 13 + 13, mb_stats=13, mb_raw=13),
                      10),
+}
+# phase 4l, the model zoo, bf16 at ZOO_BATCH: tag → (models.build name,
+# config, input channels, launches per served forward, launches per training
+# step, training steps). Eval runs no aux head; every max pool runs the pool
+# pair in both modes (GoogLeNet: the stem's two, two between stages, one
+# stride-1 pool a block; the Inception family: two in the stem or Mixed3a
+# and Mixed5a, one in each reduction)
+ZOO_BATCH = 64
+ZOO = {
+    "inception_v3": ("inception_v3", {"aux_classifiers": True}, 3,
+                     launches(40, 4), launches(0, 4, 4), 5),
+    "googlenet": ("googlenet", {"aux_classifiers": True}, 3,
+                  launches(37, 13), launches(0, 13, 13), 3),
+    "inception_v4": ("inception_v4", {}, 3, launches(61, 4),
+                     launches(0, 4, 4), 3),
+    "inception_resnet_v2": ("inception_resnet_v2", {}, 3, launches(100, 4),
+                            launches(0, 4, 4), 3),
+    "densenet121": ("densenet", {"depth": 121}, 3, launches(0, 1),
+                    launches(0, 1, 1), 3),
+    "vgg16": ("vgg", {"depth": 16}, 3, launches(0, 5), launches(0, 5, 5), 3),
+    "alexnet": ("alexnet", {}, 3, launches(0, 3), launches(0, 3, 3), 3),
+    "mnist": ("mnist", {}, 1, launches(0, 2), launches(0, 2, 2), 3),
 }
 # off the stems' path: (B, H, W, C), kernel, stride, padding, whether dy
 # starts at an unaligned offset
@@ -389,6 +428,29 @@ def path_shapes(torch, predictor, images):
     handles = [m.register_forward_pre_hook(hook)
                for m in predictor.model.modules()
                if isinstance(m, ConvBN) and m.uses_kernel()]
+    try:
+        predictor.predict_logits(images)
+    finally:
+        for h in handles:
+            h.remove()
+    return counts
+
+
+def pool_shapes(torch, predictor, images):
+    """((B, H, W, C), kernel, stride, padding) → calls per forward, for every
+    max pool of the model, read by hooks during one forward of
+    ``images``."""
+    from convnet_tpu_torch.nn import MaxPool2d
+    counts = {}
+
+    def hook(mod, args):
+        key = (tuple(args[0].shape), mod.kernel_size,
+               mod.stride if mod.stride is not None else mod.kernel_size,
+               mod.padding)
+        counts[key] = counts.get(key, 0) + 1
+
+    handles = [m.register_forward_pre_hook(hook)
+               for m in predictor.model.modules() if isinstance(m, MaxPool2d)]
     try:
         predictor.predict_logits(images)
     finally:
@@ -975,19 +1037,23 @@ def pool_bwd_variant_expected(shape, k, s, p, dname, unaligned):
         and not unaligned else "per_pixel"
 
 
-def check_max_pool(torch):
+def check_max_pool(torch, zoo_pools=()):
     """Phase 2 for the pool kernels: correctness at the stems' shapes
-    (batch 128 and 1) and the ragged shapes, bf16 and float32, normal and
-    tie-heavy inputs, and the backward's kernel against its rule; times at
-    both stems at batch 128 in bf16, the training step's shape and type.
-    Returns {kernel name: summary}, with ResNet-50's stem as the summary's
-    times and both stems under "shapes"."""
+    (batch 128 and 1), at every pool of the zoo's paths (``zoo_pools``:
+    ((B, H, W, C), kernel, stride, padding) at batch 64) and the ragged
+    shapes, bf16 and float32, normal and tie-heavy inputs, and the
+    backward's kernel against its rule; times at both stems at batch 128 and
+    at the zoo's pools in bf16. Returns {kernel name: summary}, with
+    ResNet-50's stem as the summary's times and every timed shape under
+    "shapes"."""
     import torch.nn.functional as F
     from convnet_tpu_torch.ops.kernels import max_pool as mp
     dtypes = {"bf16": torch.bfloat16, "float32": torch.float32}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [((b, h, w, c), k, s, p, False, b)
              for (h, w, c), k, s, p in STEM_POOLS for b in (TRAIN_BATCH, 1)]
+    cases += [(shape, k_, s_, p_, False, ZOO_BATCH)
+              for shape, k_, s_, p_ in zoo_pools]
     cases += [(shape, k_, s_, p_, unaligned, None)
               for shape, k_, s_, p_, unaligned in POOL_RAGGED]
     out = {name: {"max_abs_err": 0.0, "shapes": [], "variants": {}}
@@ -1040,21 +1106,22 @@ def check_max_pool(torch):
                     fwd["max_abs_err"] = max(fwd["max_abs_err"], y_err)
                     bwd["max_abs_err"] = max(bwd["max_abs_err"], dx_err)
                     bwd["variants"].setdefault(dname, set()).add(kind)
-                if batch == TRAIN_BATCH and dname == "bf16" \
+                if batch in (TRAIN_BATCH, ZOO_BATCH) and dname == "bf16" \
                         and inputs == "normal":
                     rec.update(time_pool(torch, F, mp, x, dy, idx, k_, s_,
                                          p_))
                     for name, (ms, by) in zip(
                             ("max_pool2d_fwd_idx", "max_pool2d_bwd"),
                             pool_bound(shape, k_, s_, p_, dname, idx)):
-                        timed = {"shape": list(shape),
-                                 "ms": rec[f"{name}_ms"],
+                        timed = {"shape": list(shape), "k": k_, "s": s_,
+                                 "p": p_, "ms": rec[f"{name}_ms"],
                                  "kernel_ms": rec[f"{name}_kernel_ms"],
                                  "plain_ms": rec[f"{name}_plain_ms"],
                                  "library_ms": rec[f"{name}_library_ms"],
                                  "bound_ms": ms, "bound_by": by}
                         out[name]["shapes"].append(timed)
-                        if shape[1:] == STEM_POOLS[0][0]:
+                        if batch == TRAIN_BATCH \
+                                and shape[1:] == STEM_POOLS[0][0]:
                             out[name].update(
                                 {key: v for key, v in timed.items()
                                  if key != "shape"})
@@ -1276,13 +1343,14 @@ KERNEL_GROUPS = (("pool kernels", ("max_pool2d_",)),
 
 
 def profile_step(torch, tag, tr, x, y, card, step_ms, steps=2):
-    """Phase 4f: device time of a bf16 training step by kernel, from
-    torch.profiler (CUDA activity only) over ``steps`` steps; the idle
-    share is against ``step_ms``, the unprofiled step's p50 (the profiler's
-    own start-up would swamp the profiled wall time). The profiler's CUPTI
-    tracing now and then records nothing: it is tried twice, and then the
-    breakdown is reported as not measured."""
+    """Phases 4f and 4l: device time of a bf16 training step by kernel,
+    from torch.profiler (CUDA activity only) over ``steps`` steps of x's
+    batch and size; the idle share is against ``step_ms``, the unprofiled
+    step's p50 (the profiler's own start-up would swamp the profiled wall
+    time). The profiler's CUPTI tracing now and then records nothing: it
+    is tried twice, and then the breakdown is reported as not measured."""
     from torch.profiler import ProfilerActivity, profile
+    record = f"{tag}_bf16_{x.shape[1]}_train_step"
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
@@ -1295,7 +1363,7 @@ def profile_step(torch, tag, tr, x, y, card, step_ms, steps=2):
             break
     else:
         log(f"{tag}: torch.profiler recorded no device time")
-        emit({"profile": f"{tag}_bf16_224_train_step", "card": card,
+        emit({"profile": record, "card": card,
               "step_p50_ms": step_ms, "device_busy_ms": None,
               "note": "torch.profiler recorded no device time: not measured"})
         return
@@ -1306,8 +1374,8 @@ def profile_step(torch, tag, tr, x, y, card, step_ms, steps=2):
                 groups[name] += ms
                 break
     top = sorted(kernels, key=lambda k: -k[1])[:8]
-    emit({"profile": f"{tag}_bf16_224_train_step", "card": card,
-          "batch": TRAIN_BATCH, "step_p50_ms": step_ms,
+    emit({"profile": record, "card": card,
+          "batch": x.shape[0], "step_p50_ms": step_ms,
           "device_busy_ms": busy_ms,
           "device_idle_share": max(0.0, 1 - busy_ms / step_ms),
           "kernel_launches": sum(c for _, _, c in kernels),
@@ -2141,6 +2209,185 @@ def train_cli(torch, card, k):
     return total
 
 
+def zoo_request(tag, size):
+    """The request each zoo model answers: ZOO_BATCH uint8 images at its
+    input size and channels, from the seed."""
+    return np.random.default_rng(SEED + 1).integers(
+        0, 256, (ZOO_BATCH, size, size, ZOO[tag][2]), np.uint8)
+
+
+def zoo_paths(torch):
+    """What one served forward of each zoo model runs, read from a bf16
+    predictor (batch ZOO_BATCH, weights from SEED) that is freed after:
+    {tag: {(M, K, N, act): fused 1x1 launches}} for the models with fused
+    1x1s, M taken at SERVE_BATCH whatever ZOO_BATCH is (phase 2 reads
+    every path at that batch), and the sorted distinct max-pool geometries
+    ((B, H, W, C), kernel, stride, padding) of all of them. Each model's
+    fused 1x1s and max pools must be its ZOO count. (No zoo weights stay on
+    the card through the earlier phases, whose peak memory they would
+    inflate.)"""
+    from convnet_tpu_torch.serve import Predictor
+    path, pools = {}, set()
+    for tag, (name, config, _, per_forward, *_) in ZOO.items():
+        predictor = Predictor(name, config, dtype="bf16",
+                              batch_size=ZOO_BATCH, seed=SEED)
+        size = predictor.input_size
+        request = zoo_request(tag, size)
+        shapes = path_shapes(torch, predictor, request)
+        model_pools = pool_shapes(torch, predictor, request)
+        found = (sum(shapes.values()), sum(model_pools.values()))
+        want = (per_forward["conv1x1_bn_act"],
+                per_forward["max_pool2d_fwd_idx"])
+        log(f"{tag} {size}x{size}: {found[0]} fused-route ConvBNs over "
+            f"{len(shapes)} distinct (M, K, N, act), {found[1]} max pools "
+            f"over {len(model_pools)} distinct shapes a forward")
+        if found != want:
+            raise RuntimeError(f"{tag}: fused-route ConvBNs and max pools "
+                               f"{found}, expected {want}")
+        if shapes:
+            path[tag] = {(m // ZOO_BATCH * SERVE_BATCH, *rest): n
+                         for (m, *rest), n in shapes.items()}
+        pools |= set(model_pools)
+        del predictor
+        torch.cuda.empty_cache()
+    return path, sorted(pools)
+
+
+def zoo(torch, card, k):
+    """Phase 4l: the model zoo in bf16. Each model answers one request of
+    ZOO_BATCH uint8 images at its input size, counted (its 1x1 ConvBNs on
+    the fused kernel, every max pool on the pool kernels), with finite
+    logits; Inception v3's float32 forward of 2 images on the card is held
+    against the port's float32 forward of the same weights on the CPU. Then
+    the model trains in the port's ``Trainer`` under its own regime on one
+    random batch of ZOO_BATCH, its aux heads in the loss: every step
+    counted, finite losses, step p50 (host clock and CUDA events) and peak
+    memory; Inception v3's step also under torch.profiler. Returns the
+    phase's launch counts: every launch of the phase, each counted run
+    (served requests, timed or not, the float32 forward, the steps, the
+    profiled steps) read from counts set to 0 just before it."""
+    from convnet_tpu_torch import models
+    from convnet_tpu_torch.regimes.optim import OptimRegime
+    from convnet_tpu_torch.serve import Predictor
+    from convnet_tpu_torch.train.trainer import Trainer, TrainerConfig
+    total = launches()
+    rng = np.random.default_rng(SEED + 3)
+    for tag, (name, config, channels, per_forward, per_step,
+              steps) in ZOO.items():
+        predictor = Predictor(name, config, dtype="bf16",
+                              batch_size=ZOO_BATCH, seed=SEED)
+        size = predictor.input_size
+        x_img = zoo_request(tag, size)
+        reset_counts(k)
+        t = time.perf_counter()
+        logits = predictor.predict_logits(x_img)
+        first_s = time.perf_counter() - t
+        served = counts(k)
+        expect_counts(f"{tag} {size}x{size}: serving a batch of {ZOO_BATCH}",
+                      served, per_forward)
+        total = add_counts(total, served)
+        classes = logits.shape[1]
+        if logits.shape != (ZOO_BATCH, classes) \
+                or not np.isfinite(logits).all():
+            raise RuntimeError(f"{tag}: bad logits {logits.shape}")
+        serve_times = []
+        reset_counts(k)
+        for _ in range(5):
+            t = time.perf_counter()
+            predictor.predict_logits(x_img)
+            serve_times.append(time.perf_counter() - t)
+        timed = counts(k)
+        expect_counts(f"{tag}: 5 timed requests", timed,
+                      {n: 5 * v for n, v in per_forward.items()})
+        total = add_counts(total, timed)
+        rec = {"zoo": tag, "card": card, "input_size": size,
+               "batch": ZOO_BATCH, "serve_first_ms": first_s * 1e3,
+               "serve_p50_ms": statistics.median(serve_times) * 1e3,
+               "serve_images_per_s":
+                   ZOO_BATCH / statistics.median(serve_times),
+               "launches_per_served_forward": served}
+        del predictor
+        if tag == "inception_v3":
+            ref_n = 2
+            cpu_ref = Predictor(name, config, dtype="float32",
+                                batch_size=ref_n, device="cpu",
+                                seed=SEED).predict_logits(x_img[:ref_n])
+            reset_counts(k)
+            card_f32 = Predictor(name, config, dtype="float32",
+                                 batch_size=ref_n,
+                                 seed=SEED).predict_logits(x_img[:ref_n])
+            f32_counts = counts(k)
+            expect_counts(f"{tag}: float32 forward of {ref_n}", f32_counts,
+                          per_forward)
+            total = add_counts(total, f32_counts)
+            errs = {"float32": rel_err(card_f32, cpu_ref),
+                    "bf16": rel_err(logits[:ref_n], cpu_ref)}
+            rec["logits_rel_err_vs_cpu_float32"] = errs
+            log(f"{tag}: card float32 / bf16 logits vs the CPU's float32 "
+                f"forward: {errs['float32']:.3g} / {errs['bf16']:.3g} of the "
+                f"largest (float32 tolerance {SERVE_TOL['float32']})")
+            if errs["float32"] > SERVE_TOL["float32"]:
+                raise RuntimeError(f"{tag}: float32 logits disagree with the "
+                                   f"CPU reference: {errs['float32']}")
+        torch.cuda.empty_cache()
+
+        model = models.build(name, **config)
+        tr = Trainer(model, OptimRegime(model.regime), classes,
+                     TrainerConfig(dtype="bf16", print_freq=0), seed=SEED)
+        tr.initialize()
+        x = torch.from_numpy(rng.standard_normal(
+            (ZOO_BATCH, size, size, channels)).astype(np.float32)).cuda()
+        y = torch.from_numpy(rng.integers(0, classes, ZOO_BATCH)).cuda()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, host, device = [], [], []
+        reset_counts(k)
+        for i in range(steps):
+            before = counts(k)
+            m, host_s = step_timed(torch, tr, x, y)
+            step_counts = {n: v - before[n] for n, v in counts(k).items()}
+            if step_counts != per_step:
+                raise RuntimeError(f"{tag} step {i}: launches {step_counts}, "
+                                   f"expected {per_step}")
+            losses.append(m["loss"])
+            host.append(host_s * 1e3)
+            device.append(m["device_ms"])
+        total = add_counts(total, counts(k))
+        peak = torch.cuda.max_memory_allocated()
+        if not all(np.isfinite(losses)):
+            raise RuntimeError(f"{tag}: non-finite training loss: {losses}")
+        log(f"{tag}: {steps} bf16 steps at batch {ZOO_BATCH}, losses "
+            + " ".join(f"{v:.4f}" for v in losses)
+            + f"; step p50 {statistics.median(host[1:]):.2f} ms")
+        rec.update({
+            "steps": steps, "losses": losses,
+            "step_p50_ms": statistics.median(host[1:]),
+            "step_device_p50_ms": statistics.median(device[1:]),
+            "train_images_per_s": ZOO_BATCH * 1e3 / statistics.median(
+                host[1:]),
+            "max_memory_allocated_bytes": peak,
+            "launches_per_step": per_step,
+            "note": f"host clock around train_step closed by a read of the "
+                    f"loss, and CUDA events around it; p50 over steps "
+                    f"2-{steps}; serving: host clock around predict_logits, "
+                    f"H2D and D2H included, p50 of 5 after the first"})
+        emit(rec)
+        if tag == "inception_v3":
+            # the slice's main path: where a step's device time goes
+            reset_counts(k)
+            profile_step(torch, tag, tr, x, y, card,
+                         statistics.median(host[1:]))
+            profiled = counts(k)
+            runs = profiled["max_pool2d_fwd_idx"] // per_step[
+                "max_pool2d_fwd_idx"]
+            expect_counts(f"{tag}: {runs} profiled steps", profiled,
+                          {n: runs * v for n, v in per_step.items()})
+            total = add_counts(total, profiled)
+        del tr, model, x, y
+        torch.cuda.empty_cache()
+    return total
+
+
 def kernel_launches(torch, fn):
     """CUDA kernels (not copies or sets) that one call of ``fn`` launches,
     counted by torch.profiler; None where it recorded no device event (not
@@ -2303,9 +2550,12 @@ def main():
             raise RuntimeError(f"{tag}: expected "
                                f"{per_forward['conv1x1_bn_act']} fused-route "
                                f"ConvBNs, found {found}")
+    # the zoo (phase 4l): its models' paths join the kernel checks
+    zoo_path, zoo_pools = zoo_paths(torch)
+    path.update(zoo_path)
     fused, fused_err, fused_variants = check_matmul_fused(torch, path)
     log("conv1x1_bn_act agrees with its plain version at every shape")
-    pool = check_max_pool(torch)
+    pool = check_max_pool(torch, zoo_pools)
     log("the pool kernels agree with their plain versions at every shape")
     grouped = check_grouped(torch)
     log("grouped_conv2d agrees with its plain version at every shape")
@@ -2367,6 +2617,11 @@ def main():
     t = time.perf_counter()
     path_counts["cli"] = train_cli(torch, card, k)
     seconds["cli"] = time.perf_counter() - t
+
+    # -- 4l. the model zoo: served and trained, counted
+    t = time.perf_counter()
+    path_counts["zoo"] = zoo(torch, card, k)
+    seconds["zoo"] = time.perf_counter() - t
     seconds["total"] = time.perf_counter() - t0
     emit({"seconds_by_phase": seconds})
 
@@ -2375,7 +2630,7 @@ def main():
     # wrapper's weight casts and copies included); kernel_ms, the kernel
     # alone (its launches replayed from a CUDA graph); launches, the serving,
     # the training, the large-batch LARS, the batch-augmentation, the remat,
-    # the CIFAR and the CLI runs together
+    # the CIFAR, the CLI and the zoo's runs together
     by_path = {"serve": serve_counts, "train": train_counts, **path_counts}
 
     def row(name, source, replaces, ms, kernel_ms, plain_ms, bound_ms,

@@ -338,6 +338,12 @@ def main(argv=None):
         defaults["augment"] = False
     if args.input_size:
         defaults["input_size"] = args.input_size
+    in_channels = getattr(model, "in_channels", 3)
+    if args.dataset.startswith("synthetic") and in_channels != 3:
+        # a model of other than 3 input channels (the MNIST net's 1) gets a
+        # synthetic dataset of its channels at its input size
+        defaults["dataset_kwargs"] = {"channels": in_channels,
+                                      "image_size": model.input_size}
     train_data = DataRegime(getattr(model, "data_regime", None),
                             defaults=defaults, seed=args.seed, device=device)
     eval_bs = args.eval_batch_size if args.eval_batch_size > 0 else args.batch_size

@@ -11,11 +11,16 @@ package's structural predicates, with no env flag and no ``impl`` knob: an
 eval grouped conv (cin == cout) to ``ops/kernels/grouped_conv.py`` and a
 depthwise conv, in training and in eval, to
 ``ops/kernels/depthwise_conv.py``. Every other conv runs ``ops.conv2d``.
+A conv's bias, where it has one, is added in float32 after any route.
+
+Not ported: ``SpaceToDepth`` and the spatially sharded branches of
+``Flatten``, ``MaxPool2d``, ``AvgPool2d`` and ``GlobalAvgPool``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from convnet_tpu_torch import ops
@@ -29,24 +34,35 @@ def _pair(v):
 
 
 class Conv2d(nn.Module):
-    """Bias-free NHWC conv; weight OIHW; dilation 1."""
+    """NHWC conv; weight OIHW, optional bias. ``padding`` is an int or a
+    per-axis pair (ph, pw)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 padding=0, groups=1):
+                 padding=0, dilation=1, groups=1, bias=False):
         super().__init__()
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.kernel_size = _pair(kernel_size)
         self.stride = stride
         self.padding = padding
+        self.dilation = dilation
         self.groups = groups
         self.weight = nn.Parameter(torch.empty(
             out_channels, in_channels // groups, *self.kernel_size))
+        self.bias = (nn.Parameter(torch.empty(out_channels)) if bias
+                     else None)
         self.reset_parameters()
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
         self.weight.copy_(init.kaiming_normal(self.weight.shape, generator))
+        if self.bias is not None:
+            # the JAX package's U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+            fan_in = (self.kernel_size[0] * self.kernel_size[1]
+                      * self.in_channels // self.groups)
+            self.bias.copy_(init.uniform((self.out_channels,),
+                                         1.0 / max(fan_in, 1) ** 0.5,
+                                         generator))
 
     def uses_grouped_kernel(self):
         """The reference's ``_pallas_grouped_ok`` (``nn/layers.py:66-84``)
@@ -54,6 +70,7 @@ class Conv2d(nn.Module):
         integer padding, and ``grouped_conv.supported``."""
         return (not self.training
                 and _pair(self.stride) == (1, 1)
+                and _pair(self.dilation) == (1, 1)
                 and isinstance(self.padding, int)
                 and grouped_conv.supported(
                     (self.in_channels,), self.weight.shape, self.groups,
@@ -64,18 +81,24 @@ class Conv2d(nn.Module):
         without its env flag: groups == cin == cout, stride <= 2, integer
         padding; in training and in eval."""
         return (self.groups == self.in_channels == self.out_channels
+                and _pair(self.dilation) == (1, 1)
                 and isinstance(self.padding, int)
                 and depthwise_conv.supported(self.stride))
 
     def forward(self, x):
         if self.uses_grouped_kernel():
-            return grouped_conv.grouped_conv2d(x, self.weight, self.stride,
-                                               self.padding, self.groups)
-        if self.uses_depthwise_kernel():
-            return depthwise_conv.depthwise_conv2d(x, self.weight,
-                                                   self.stride, self.padding)
-        return ops.conv2d(x, self.weight, stride=self.stride,
-                          padding=self.padding, groups=self.groups)
+            y = grouped_conv.grouped_conv2d(x, self.weight, self.stride,
+                                            self.padding, self.groups)
+        elif self.uses_depthwise_kernel():
+            y = depthwise_conv.depthwise_conv2d(x, self.weight, self.stride,
+                                                self.padding)
+        else:
+            y = ops.conv2d(x, self.weight, stride=self.stride,
+                           padding=self.padding, dilation=self.dilation,
+                           groups=self.groups)
+        if self.bias is not None:
+            y = (y.float() + self.bias.float()).to(y.dtype)
+        return y
 
 
 class BatchNorm2d(nn.Module):
@@ -171,6 +194,16 @@ class ReLU6(nn.Module):
         return ops.relu6(x)
 
 
+class HardSwish(nn.Module):
+    def forward(self, x):
+        return F.hardswish(x)
+
+
+class Sigmoid(nn.Module):
+    def forward(self, x):
+        return torch.sigmoid(x)
+
+
 class Dropout(nn.Module):
     """In training, keeps each element with probability 1 − rate and scales
     it by 1/(1 − rate) (the JAX package's ``Dropout``); the identity in eval
@@ -206,8 +239,50 @@ class MaxPool2d(nn.Module):
         return ops.max_pool2d(x, self.kernel_size, self.stride, self.padding)
 
 
+class AvgPool2d(nn.Module):
+    """``count_include_pad`` as in torch.nn.AvgPool2d: True divides every
+    window by the kernel's area (Inception v3), False by its in-bounds taps
+    (the Inception-v4 and Inception-ResNet-v2 branch pools)."""
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 count_include_pad=True):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+        self.count_include_pad = count_include_pad
+
+    def forward(self, x):
+        return ops.avg_pool2d(x, self.kernel_size, self.stride, self.padding,
+                              self.count_include_pad)
+
+
 class GlobalAvgPool(nn.Module):
     """AdaptiveAvgPool2d(1) + flatten equivalent."""
 
     def forward(self, x):
         return ops.global_avg_pool(x)
+
+
+class Flatten(nn.Module):
+    """(B, ...) → (B, -1); on NHWC maps it flattens (H, W, C), not torch's
+    (C, H, W) (``utils/torch_import.py`` permutes the next linear)."""
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
+
+
+class LocalResponseNorm(nn.Module):
+    """LRN across channels, in float32: x / (k + α·Σ_window x² / size)^β
+    over ``size`` neighbouring channels, zero-padded at the ends."""
+
+    def __init__(self, size=5, alpha=1e-4, beta=0.75, k=2.0):
+        super().__init__()
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+
+    def forward(self, x):
+        x32 = x.float()
+        half = self.size // 2
+        sq = F.pad(x32.square(), (half, self.size - 1 - half))
+        c = x.shape[-1]
+        win = sum(sq[..., i:i + c] for i in range(self.size))
+        denom = torch.pow(self.k + self.alpha * win / self.size, self.beta)
+        return (x32 / denom).to(x.dtype)

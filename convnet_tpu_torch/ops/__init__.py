@@ -5,7 +5,8 @@ from convnet_tpu_torch.ops.conv import conv2d
 from convnet_tpu_torch.ops.linear import linear
 from convnet_tpu_torch.ops.norm import (batch_norm_inference,
                                         batch_norm_train)
-from convnet_tpu_torch.ops.pool import global_avg_pool, max_pool2d
+from convnet_tpu_torch.ops.pool import (avg_pool2d, global_avg_pool,
+                                        max_pool2d)
 
 __all__ = ["relu", "relu6", "conv2d", "linear", "batch_norm_inference",
-           "batch_norm_train", "global_avg_pool", "max_pool2d"]
+           "batch_norm_train", "avg_pool2d", "global_avg_pool", "max_pool2d"]

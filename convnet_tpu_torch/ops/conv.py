@@ -21,8 +21,15 @@ def to_nhwc(x):
     return x.permute(0, 2, 3, 1).contiguous()
 
 
-def conv2d(x, w, *, stride=1, padding=0, groups=1):
-    """x: (B, H, W, Cin); w: OIHW (Cout, Cin/groups, kh, kw); symmetric
-    integer padding. The weight is cast to x's dtype; output in x's dtype."""
-    y = F.conv2d(to_nchw(x), w.to(x.dtype), None, stride, padding, 1, groups)
+def pair(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def conv2d(x, w, *, stride=1, padding=0, dilation=1, groups=1):
+    """x: (B, H, W, Cin); w: OIHW (Cout, Cin/groups, kh, kw); ``padding`` an
+    int or a per-axis pair (ph, pw), each padding both sides of its axis (an
+    Inception (1, 7) kernel takes (0, 3)). The weight is cast to x's dtype;
+    output in x's dtype."""
+    y = F.conv2d(to_nchw(x), w.to(x.dtype), None, stride, pair(padding),
+                 dilation, groups)
     return to_nhwc(y)

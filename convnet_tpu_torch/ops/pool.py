@@ -1,17 +1,23 @@
 """NHWC pooling (counterpart of convnet_tpu/ops/pool.py:49-79, 475-498,
-605-608).
+501-608).
 
 ``max_pool2d`` runs the forward-with-index kernel and, when a gradient is
 needed, saves its uint8 index for the backward kernel
 (``ops/kernels/max_pool.py``): the route the JAX package takes with
 ``impl="pallas"`` (``max_pool2d_pallas``), on every max pool the kernels
 take. Without a gradient (eval, serving) the forward writes no index.
+
+``avg_pool2d`` is XLA in the JAX package, not Pallas, so it runs the
+library's average pool here. Its custom backward there (``_ap_bwd_padsum``)
+works around the TPU's pad-scatter; autograd gives the same gradient.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from convnet_tpu_torch.ops.conv import pair, to_nchw, to_nhwc
 from convnet_tpu_torch.ops.kernels import max_pool
 
 
@@ -46,3 +52,15 @@ def global_avg_pool(x):
     """(B, H, W, C) → (B, C) mean; float32 accumulation."""
     out = x.float().mean(dim=(1, 2))
     return out.to(x.dtype)
+
+
+def avg_pool2d(x, kernel, stride=None, padding=0, count_include_pad=True):
+    """Average pool on NHWC in x's dtype; the library's pool sums a bf16
+    window in float32 and rounds once. ``count_include_pad`` True divides
+    every window by the kernel's area (torchvision's Inception v3); False
+    by its in-bounds taps (the Inception-v4 and Inception-ResNet-v2 branch
+    pools)."""
+    stride = stride if stride is not None else kernel
+    y = F.avg_pool2d(to_nchw(x), pair(kernel), pair(stride), pair(padding),
+                     count_include_pad=count_include_pad)
+    return to_nhwc(y)

@@ -15,6 +15,14 @@ weights under a BoundedWeightNorm regime and updates the weights' EMA
 (``model_ema``). Dropout draws its masks from one ``torch.Generator`` on the
 model's device, seeded from ``seed``.
 
+A model with auxiliary classifiers (GoogLeNet, Inception v3 built with
+``aux_classifiers=True``) takes a collector, ``model(x, aux=[])``; every loss
+a step computes (each chunk's, with mixed targets too, and the gradient-norm
+scale's extra pass) adds ``weight · criterion(aux_logits, y)`` for each head
+to the main logits' loss, as the JAX package's ``_loss_fn`` does. The
+metrics use the main logits; ``validate`` and ``calibrate_bn`` run no head,
+and ``calibrate_bn`` leaves the heads' BatchNorm statistics as they are.
+
 ``grad_clip`` and ``loss_scale`` come from the optimizer regime where it sets
 them, else from ``TrainerConfig``. (The JAX trainer reads them from the
 regime only, so its config fields have no effect there.)
@@ -33,6 +41,7 @@ from __future__ import annotations
 import base64
 import collections
 import dataclasses
+import inspect
 import json
 import logging
 import time
@@ -106,6 +115,8 @@ class Trainer:
         self.training_steps = 0
         self.opt_state = None
         self._watcher = None
+        self._takes_aux = "aux" in inspect.signature(
+            self.model.forward).parameters
 
     def set_watcher(self, path_or_file):
         """Live telemetry: ``train_epoch`` appends one JSON line a step with
@@ -184,6 +195,21 @@ class Trainer:
         y = torch.as_tensor(y).to(self.device, non_blocking=True)
         return self.policy.cast_to_compute(x), y
 
+    def _loss(self, x, y):
+        """The training forward of x and its loss against y (class labels
+        or soft targets): the main logits' loss plus, for a model with
+        auxiliary heads, each head's ``weight · criterion(logits, y)``.
+        Returns (loss, main logits)."""
+        if not self._takes_aux:
+            logits = self.model(x)
+            return self.criterion(logits, y), logits
+        heads = []
+        logits = self.model(x, aux=heads)
+        loss = self.criterion(logits, y)
+        for weight, aux_logits in heads:
+            loss = loss + weight * self.criterion(aux_logits, y)
+        return loss, logits
+
     def train_step(self, x, y):
         """One step on the batch (x (B, H, W, C), y (B,) class labels) at the
         regime's current setting. Returns device scalars ``loss`` (the mean
@@ -209,8 +235,7 @@ class Trainer:
         size = x.shape[0] // chunks
         loss = c1 = c5 = 0.0
         for xi, yi in zip(torch.split(x, size), torch.split(y, size)):
-            logits = self.model(xi)
-            chunk_loss = self.criterion(logits, yi)
+            chunk_loss, logits = self._loss(xi, yi)
             (chunk_loss * hp["loss_scale"]).backward()
             cc1, cc5 = correct_topk(logits.detach(), yi, (1, 5))
             loss, c1, c5 = loss + chunk_loss.detach(), c1 + cc1, c5 + cc5
@@ -252,8 +277,7 @@ class Trainer:
             full = global_norm(grads)
             buffers = [b for _, b in self.model.named_buffers()]
             saved = [b.clone() for b in buffers]
-            logits = self.model(x[::d].contiguous())
-            loss = self.criterion(logits, y[::d]) * loss_scale
+            loss = self._loss(x[::d].contiguous(), y[::d])[0] * loss_scale
             sub = torch.autograd.grad(loss, self._params, allow_unused=True)
             with torch.no_grad():
                 for b, v in zip(buffers, saved):
@@ -395,8 +419,9 @@ class Trainer:
         replay of the uninterrupted run holds from port to port only."""
         if self.opt_state is None:
             self.initialize()
+        # a model without BatchNorm (the MNIST net) saves no state
         self.model.load_state_dict(from_jax_params(ckpt["params"],
-                                                   ckpt["state"]))
+                                                   ckpt.get("state")))
         if ckpt.get("opt_state") is not None:
             template = {k: (slots_to_tree(self.model, v)
                             if isinstance(v, list) else v)
@@ -484,9 +509,15 @@ class Trainer:
         batch = (new − (1 − m)·old) / m, and averaged over the batches. The
         model's buffers are left holding the average (the JAX package
         returns a new state tree instead; the port's model owns its
-        buffers). Returns the number of batches used."""
+        buffers). A BatchNorm whose buffers the forward leaves unchanged (an
+        auxiliary head's, which does not run) keeps its statistics exactly;
+        a fused block's, updated through ``BatchNorm2d.track`` without
+        calling the module, counts as run. Returns the number of batches
+        used."""
         bns = [m for m in self.model.modules() if isinstance(m, BatchNorm2d)]
         old = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+        ran = [torch.zeros((), dtype=torch.bool, device=mean0.device)
+               for mean0, _ in old]
         avg, count = None, 0
         self.model.train()
         for i, (x, _) in enumerate(loader):
@@ -496,7 +527,9 @@ class Trainer:
                 torch.as_tensor(x).to(self.device, non_blocking=True))
             self.model(x)
             batch = []
-            for m, (mean0, var0) in zip(bns, old):
+            for m, (mean0, var0), r in zip(bns, old, ran):
+                r |= ((m.running_mean != mean0).any()
+                      | (m.running_var != var0).any())
                 k = m.momentum
                 batch.append(((m.running_mean - (1 - k) * mean0) / k,
                               (m.running_var - (1 - k) * var0) / k))
@@ -507,7 +540,8 @@ class Trainer:
                  a_v + (b_v - a_v) / (count + 1))
                 for (a_m, a_v), (b_m, b_v) in zip(avg, batch)]
             count += 1
-        for m, stats in zip(bns, avg or []):
-            m.running_mean.copy_(stats[0])
-            m.running_var.copy_(stats[1])
+        for m, stats, r in zip(bns, avg or [], ran):
+            if r:
+                m.running_mean.copy_(stats[0])
+                m.running_var.copy_(stats[1])
         return count

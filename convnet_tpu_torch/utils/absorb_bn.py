@@ -1,10 +1,11 @@
 """BatchNorm folding for inference (counterpart of
 convnet_tpu/utils/absorb_bn.py), on the port's modules.
 
-Math: y = γ·(W*x − μ)/σ + β  ⇒  W' = W·γ/σ, shift = β − μ·γ/σ, with
-σ = sqrt(var + eps). The conv weight takes γ/σ; the BN stays in the graph as
-a pure ``x + shift``: mean 0, var 1 − eps (so 1/sqrt(var + eps) = 1),
-weight 1, bias = shift. Folding is idempotent.
+Math: y = γ·(W*x + b − μ)/σ + β  ⇒  W' = W·γ/σ, shift = β + (b − μ)·γ/σ,
+with σ = sqrt(var + eps) and b the conv's bias (0 without one, and zeroed
+once folded). The conv weight takes γ/σ; the BN stays in the graph as a
+pure ``x + shift``: mean 0, var 1 − eps (so 1/sqrt(var + eps) = 1), weight
+1, bias = shift. Folding is idempotent.
 """
 
 from __future__ import annotations
@@ -22,10 +23,14 @@ def absorb_bn_pair(conv: nn.Module, bn: BatchNorm2d):
     """Fold ``bn`` into the preceding ``conv`` in place."""
     inv_sigma = 1.0 / torch.sqrt(bn.running_var + bn.eps)
     factor = bn.weight.float() * inv_sigma
-    shift = bn.bias.float() - bn.running_mean * factor
+    b = conv.bias
+    shift = bn.bias.float() + ((0.0 if b is None else b.float())
+                               - bn.running_mean) * factor
     w = conv.weight
     # the output channel is axis 0 of an OIHW conv and of an (out, in) linear
     w.copy_((w.float() * factor.view(-1, *([1] * (w.dim() - 1)))).to(w.dtype))
+    if b is not None:
+        b.zero_()       # absorbed into the shift
     bn.running_mean.zero_()
     bn.running_var.fill_(1.0 - bn.eps)
     bn.weight.fill_(1.0)

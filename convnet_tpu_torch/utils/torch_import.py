@@ -184,8 +184,9 @@ def _flatten_permutation(w, channels, to_nhwc):
 def import_torch_state_dict(state_dict, model):
     """The model's ``state_dict`` with every conv, linear and BN entry taken
     from the torch ``state_dict`` (dtypes as the model's). Raises
-    ValueError on any structural mismatch. A torch conv bias (the port's
-    convs have none) folds exactly into the next BN's running mean:
+    ValueError on any structural mismatch. A torch conv bias goes into the
+    port conv's bias where it has one (the MNIST net, Inception-ResNet-v2's
+    ``up`` convs); else it folds exactly into the next BN's running mean:
     BN(conv + b | mean μ) == BN(conv | mean μ − b). A checkpoint with
     auxiliary heads imports into a model without them by dropping the heads,
     with a warning."""
@@ -209,7 +210,9 @@ def import_torch_state_dict(state_dict, model):
         if kind == "conv":
             last_conv_out = int(tp["w"].shape[0])
             put(key(prefix, "weight"), tp["w"])
-            if tp.get("b") is not None:
+            if tp.get("b") is not None and mod.bias is not None:
+                put(key(prefix, "bias"), tp["b"])
+            elif tp.get("b") is not None:
                 pending_bias = (tname, tp["b"])
         elif kind == "linear":
             w = tp["w"]
@@ -252,8 +255,9 @@ def export_into_torch_state_dict(template_state_dict, model):
     *template* (e.g. ``reference_model.state_dict()``) filled with this
     model's weights. Returns a new dict of numpy arrays keyed like the
     template; load it with ``reference_model.load_state_dict({k:
-    torch.tensor(v) ...})``. Conv biases of the template cannot be
-    reconstructed (the port's convs have none) and are emitted as zeros."""
+    torch.tensor(v) ...})``. A template's conv bias is the port conv's
+    bias where it has one; else it cannot be reconstructed (it was folded
+    into a BN) and is emitted as zeros."""
     out = {k: np.asarray(v.detach().cpu().numpy()
                          if isinstance(v, torch.Tensor) else v)
            for k, v in template_state_dict.items()}
@@ -271,7 +275,8 @@ def export_into_torch_state_dict(template_state_dict, model):
             last_conv_out = w.shape[0]
             out[key("weight")] = w
             if tp.get("b") is not None:
-                out[key("bias")] = np.zeros(w.shape[0], np.float32)
+                out[key("bias")] = (host(mod.bias) if mod.bias is not None
+                                    else np.zeros(w.shape[0], np.float32))
         elif kind == "linear":
             w = host(mod.weight)
             if last_conv_out and not pooled and w.shape[1] != last_conv_out:

@@ -59,6 +59,19 @@ and of the float32 card-against-CPU check in chip_smoke.py:
                 JAX step (loss, updates in norm: all, worst tensor over its
                 update's norm plus 1e-4 of all updates' norm; BN statistics);
                 the eval logits; the SE blocks alone in float32 and bf16
+  zoo           the zoo's training-step cases of
+                tests/test_torch_port_zoo_small.py and
+                tests/test_torch_port_zoo_googlenet.py (the MNIST net, VGG-11
+                on CIFAR, the narrow DenseNet at batch 8; GoogLeNet with its
+                aux heads at 64x64, batch 4 and 8; dropout 0): the port's
+                float32 step against the JAX trainer's and against its own
+                float64 step (loss, updates in norm, worst tensor over its
+                update's norm plus 1e-4 of all updates' norm, BN statistics);
+                then the three Inception models' training forward (dropout
+                0, batch 2) at 75, 107 and 139 pixels: how far a 1e-7
+                relative input change, and float32 against float64, move
+                the logits (a share of the largest), the conditioning that
+                sets tests/test_torch_port_zoo_inception*.py's training size
   mobilenet_v2_float64
                 the same net's loss gradient at batch 8, the JAX model under
                 a float64 policy (64-bit JAX; and once more with its
@@ -74,7 +87,7 @@ take the most):
     JAX_PLATFORMS=cpu PYTHONPATH=.:tests python scripts/port_numerics.py \
         [sensitivity jax bf16_step bf16 float64 oscillation resnext
          mobilenet mobilenet_v2 trainer_features trainer_features_float64
-         mobilenet_v2_float64 cifar_se]
+         mobilenet_v2_float64 cifar_se zoo]
 """
 
 import copy
@@ -727,12 +740,88 @@ def cifar_se():
                       flush=True)
 
 
+def zoo():
+    import test_torch_port_zoo_small as Z
+    cases = [("mnist", {}, (8, 28, 28, 1)),
+             ("vgg", Z.VGG11_CIFAR, (8, 32, 32, 3)),
+             ("densenet", Z.DENSENET, (8, 32, 32, 3))]
+    cases += [("googlenet", {"aux_classifiers": True, "num_classes": 10},
+               (batch, 64, 64, 3)) for batch in (4, 8)]
+    for name, config, shape in cases:
+        model = Z.port_model(name, config)
+        params, state = to_jax_params(model.state_dict())
+        rng = np.random.default_rng(1)
+        x = rng.standard_normal(shape).astype(np.float32)
+        y = rng.integers(0, 10, shape[0]).astype(np.int32)
+        j_loss, j_params, j_state = Z.jax_step(name, config, params, state,
+                                               x, y, 10)
+        loss, tr = Z.port_step(model, x, y, 10)
+        after = to_jax_params(tr.model.state_dict())
+        p0 = dict(Z.leaves(params))
+        ref = {k: v - p0[k] for k, v in Z.leaves(j_params)}
+        got = {k: v - p0[k] for k, v in Z.leaves(after[0])}
+        j_errs = _update_errs(got, ref, floor=1e-4)
+        ref_s, got_s = dict(Z.leaves(j_state)), dict(Z.leaves(after[1]))
+        stats = max([0.0] + [float(np.abs(got_s[k] - ref_s[k]).max()
+                                   / (1 + np.abs(ref_s[k]).max()))
+                             for k in ref_s])
+        model = Z.port_model(name, config)
+        Z.zero_dropout(port_module=model)
+        tr = Trainer(model, OptimRegime(model.regime), 10,
+                     TrainerConfig(dtype="float32", print_freq=0),
+                     device="cpu")
+        tr.initialize(Z.from_jax_params(params, state))
+        w0 = {k: v.detach().double().clone()
+              for k, v in tr.model.named_parameters()}
+        l64 = _double_step(tr, x, y)
+        u64 = {k: (v.detach().double() - w0[k]).numpy()
+               for k, v in tr.model.named_parameters()}
+        w32 = Z.from_jax_params(after[0])
+        u32 = {k: (w32[k].double() - w0[k]).numpy() for k in u64}
+        e64 = _update_errs(u32, u64, floor=1e-4)
+        print(f"{name} {config} batch {shape[0]}: against JAX: loss "
+              f"{abs(loss - j_loss) / abs(j_loss):.3g}, updates in norm "
+              f"{j_errs[0]:.3g}, worst tensor {j_errs[1]:.3g}, BN "
+              f"statistics {stats:.3g}; the port's float32 against its "
+              f"float64: loss {abs(loss - l64) / abs(l64):.3g}, updates in "
+              f"norm {e64[0]:.3g}, worst tensor {e64[1]:.3g}", flush=True)
+    sizes = [(name, size, 2) for name in ("inception_v3", "inception_v4",
+                                          "inception_resnet_v2")
+             for size in (75, 107, 139)] + [("googlenet", 64, 4)]
+    for name, size, batch in sizes:
+        model = Z.port_model(name, {"num_classes": 10})
+        Z.zero_dropout(port_module=model)
+        model.train()
+        x = Z.images((batch, size, size, 3), 5)
+        noise = 1 + 1e-7 * np.random.default_rng(0).standard_normal(
+            x.shape).astype(np.float32)
+        saved_float = torch.Tensor.float
+        with torch.no_grad():
+            a = model(torch.from_numpy(x))
+            b = model(torch.from_numpy(x * noise))
+            try:
+                torch.Tensor.float = (
+                    lambda t: t if t.dtype == torch.float64
+                    else saved_float(t))
+                c = model.double()(torch.from_numpy(x).double())
+            finally:
+                torch.Tensor.float = saved_float
+        top = float(c.abs().max())
+        print(f"{name} training forward at {size}x{size}, batch {batch}: "
+              f"a 1e-7 input change moves the logits by "
+              f"{float((a - b).abs().max()) / top:.3g} of the largest, "
+              f"float32 against float64 "
+              f"{float((a.double() - c).abs().max()) / top:.3g}",
+              flush=True)
+
+
 PARTS = {"sensitivity": sensitivity, "jax": jax_steps, "bf16_step": bf16_step,
          "bf16": bf16_blocks, "float64": float64, "oscillation": oscillation,
          "resnext": resnext, "mobilenet": mobilenet,
          "mobilenet_v2": mobilenet_v2, "trainer_features": trainer_features,
          "trainer_features_float64": trainer_features_float64,
-         "mobilenet_v2_float64": mobilenet_v2_float64, "cifar_se": cifar_se}
+         "mobilenet_v2_float64": mobilenet_v2_float64, "cifar_se": cifar_se,
+         "zoo": zoo}
 
 if __name__ == "__main__":
     torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))

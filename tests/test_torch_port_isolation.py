@@ -7,6 +7,8 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+
 import convnet_tpu_torch
 
 PACKAGE = pathlib.Path(convnet_tpu_torch.__file__).parent
@@ -66,6 +68,32 @@ def test_the_pipeline_and_cli_modules_are_checked():
     assert set(PIPELINE) <= checked
 
 
+# the model zoo's modules, and the ops and layers they brought
+ZOO = ("models/mnist.py", "models/alexnet.py", "models/vgg.py",
+       "models/densenet.py", "models/googlenet.py", "models/inception.py",
+       "models/inception_v4.py", "models/inception_resnet_v2.py",
+       "ops/pool.py", "ops/conv.py", "nn/layers.py", "utils/absorb_bn.py")
+
+
+@pytest.mark.parametrize("module", ZOO)
+def test_the_zoo_modules_are_checked(module):
+    """Each is among the sources both tests above read, and imports
+    nothing but the standard library, numpy, torch and the port."""
+    path = PACKAGE / module
+    assert path in SOURCES
+    allowed = {"torch", "numpy", "convnet_tpu_torch", "__future__"}
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top in allowed or top in sys.stdlib_module_names, name
+
+
 def _code_lines(path):
     """A C++ source's lines without its comments and blank lines."""
     out = []
@@ -102,7 +130,6 @@ def test_builds_write_only_into_the_build_dir(tmp_path, monkeypatch):
     import shutil
     from convnet_tpu_torch.ops.kernels import _build
     if shutil.which("g++") is None:
-        import pytest
         pytest.skip("no g++: the host libraries cannot be built here")
     build_dir = tmp_path / "_build"
     monkeypatch.setattr(_build, "BUILD_DIR", build_dir)

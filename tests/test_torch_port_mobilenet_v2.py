@@ -248,6 +248,33 @@ def test_fused_blocks_update_bn_statistics_as_jax(first_step):
                                    atol=STAT_TOL, err_msg=str(k))
 
 
+def test_calibrate_bn_recalibrates_fused_blocks_as_jax():
+    """``calibrate_bn`` over 2 of 3 batches, from redrawn statistics: the
+    fused blocks update their BNs through ``BatchNorm2d.track`` without
+    calling the module, and every BN of the model (the fused ones
+    included) must move and land on the JAX trainer's averages, within the
+    step's STAT_TOL (2.9e-5 measured, relative to 1 + |statistic|)."""
+    params, state = jax_init(seed=4, redraw_stats=True)
+    batches = [batch(BATCH, seed=s) for s in (11, 12, 13)]
+    model = jax_models.build("mobilenet_v2", **CONFIG)
+    j_tr = JaxTrainer(model, jax_optim.OptimRegime(model.regime),
+                      CONFIG["num_classes"],
+                      JaxTrainerConfig(dtype="float32", print_freq=0))
+    ref = dict(_leaves(_numpy(j_tr.calibrate_bn(
+        batches, jax.tree_util.tree_map(jnp.asarray, params),
+        jax.tree_util.tree_map(jnp.asarray, state), num_steps=2))))
+    tr = port_trainer(params, state)
+    assert tr.calibrate_bn(batches, num_steps=2) == 2
+    got = dict(_leaves(to_jax_params(tr.model.state_dict())[1]))
+    before = dict(_leaves(state))
+    assert ref.keys() == got.keys() == before.keys()
+    assert any(k[:2] == ("features", "1") for k in got)
+    for k in ref:
+        assert not np.allclose(got[k], before[k]), k
+        np.testing.assert_allclose(got[k], ref[k], rtol=STAT_TOL,
+                                   atol=STAT_TOL, err_msg=str(k))
+
+
 # -------------------------------------------------------------- RMSprop
 
 def test_rmsprop_step_matches_jax_over_three_steps():
