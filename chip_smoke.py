@@ -18,7 +18,9 @@ and serving from the checkpoint; and the port's command-line trainer
 (``python -m convnet_tpu_torch.cli.main``, called in process) on datasets:
 ResNet-50 from synthetic ImageNet and from JPEG files, ResNet-20 from a
 CIFAR-shaped one; and the rest of the model zoo at full width (Inception v3
-at 299² with its aux head first), served and trained.
+at 299² with its aux head first), served and trained; and the rest of
+serving: int8 serving of ResNet-50 and MobileNet-V2, ResNet-50 exported and
+served from the artifact, ``devices="all"`` and the HTTP server.
 
 1. card: name and power limit; the CUDA kernels are built with nvcc, one
    process per source, all started together, and the input pipeline's host
@@ -41,7 +43,12 @@ at 299² with its aux head first), served and trained.
    whole 16-byte channel vectors on the tiled kernel, every bf16 MBConv
    block with Cin and Cout multiples of 8 on the tensor-core kernel, every
    3x3/s2/p1 pool backward with whole 16-byte channel vectors and aligned
-   dy on the tiled kernel.
+   dy on the tiled kernel. The int8 1x1 kernel at every (M, K, N, act,
+   folded BN or none) of int8 ResNet-50 and MobileNet-V2 (read from their
+   int8 predictors: batch 64 and 1), at Inception v3's 17x17 1x1s (K = 768)
+   and at ragged shapes, bf16 and float32, its variant against its rule
+   (rows of whole 16-byte vectors: "vector"), timed beside the unfused
+   chain (quantize, ``torch._int_mm``, dequantize) and the bf16 fused 1x1.
    Kernel, plain version and the nearest library call (for MBConv the
    unfused chain of library calls) are timed with CUDA
    events, and the kernel alone (its launches replayed from a CUDA graph)
@@ -117,9 +124,28 @@ at 299² with its aux head first), served and trained.
    pool pair at every pool shape of the zoo's paths (stride 1, 3x3/s2
    unpadded, 2x2/s2 among them), each against its plain version, and times
    them.
+   4m. the rest of serving, bf16 at full width, weights from the seed.
+   (a) ResNet-50 and MobileNet-V2 under ``Predictor(quantize="int8")``,
+   calibrated on 64 seeded uint8 images, answer requests of 64, 17 and 1,
+   counted (int8 launches ``len(act_scales)`` a forward: 33 and 34; no
+   fused 1x1, no MBConv: MobileNet-V2's blocks run layer by layer, 17
+   depthwise launches), finite, unchanged by the padding rows, and against
+   the bf16 Predictor: correlation > 0.99, top-1 agreement >= 0.75; batch-64
+   throughput and batch-1 p50 beside the bf16 Predictor's, in turns. (b)
+   ResNet-50 in bf16 and in int8 exported (``torch.export``), loaded and
+   served on the card (64 and 17 images), launching the eager forward's
+   kernels as many times, its logits against the Predictor's (bit-equal or
+   not; at most the bf16 serving tolerance); export seconds and artifact
+   bytes. (c) ``devices="all"`` bit-equal to ``devices=None``. (d) a
+   ``PredictionServer`` on 127.0.0.1 over the bf16 ResNet-50 Predictor:
+   128 single-image npy requests from 16 threads, each reply's top-5 the
+   Predictor's; device batches formed, requests a second, p50 and p99; a
+   JPEG the phase writes and the decoder it went through; /healthz; a 400
+   for a wrongly sized npy; then a server over the exported artifact
+   answers 17 requests.
 5. summary: one ``{"kernels": [...]}`` line (each kernel's launches by path,
-   the CLI's and the zoo's among them), the card line, and as the last
-   line ``{"ok": true, "device": {...}}``.
+   the CLI's, the zoo's and the rest of serving's among them), the card
+   line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; a hang dumps every
 thread's stack and exits after ``HANG_LIMIT_S``.
@@ -149,7 +175,8 @@ RAGGED = [(49, 72, 40, "relu6"),  # N edge masked; K % 8 == 0: the TMA kernel
           (130, 24, 136, "none")]  # K under one 64-wide slice: TMA zero-fills
 # H100 SXM (NVIDIA data sheet): HBM rate and dense peaks by operand type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "float32": 67e12}  # float32: no tensor core
+PEAK_OPS_PER_S = {"bf16": 989e12, "float32": 67e12,  # float32: no tensor core
+                  "int8": 1979e12}
 # kernel vs plain version, |err| <= tol * (1 + |ref|):
 #   bf16: both sum the same exact bf16 products in float32 in another order;
 #         the bf16 output may then round one ulp (2^-8 relative) apart.
@@ -162,7 +189,7 @@ KERNEL_TOL = {"bf16": 1e-2, "float32": 1e-4}
 SERVE_TOL = {"bf16": 5e-2, "float32": 1e-3}
 PAD_TOL = 1e-3  # the same rows in a batch of 64 padded or full
 KERNELS = ("matmul_fused", "max_pool", "grouped_conv",
-           "depthwise_conv", "mbconv")           # csrc/<name>.cu
+           "depthwise_conv", "mbconv", "matmul_int8")   # csrc/<name>.cu
 TRAIN_BATCH = 128     # bf16 steps; BN keeps float32 copies for its backward
 CHECK_BATCH = 4       # the float32 step held against the CPU
 # the stem pools of ResNet-50 and ResNeXt-50: (H, W, C), kernel, stride, pad
@@ -208,13 +235,14 @@ MBCONV_TOL = {"bf16": 1e-2, "float32": 1e-4}
 SUM_TOL = 5e-5
 KERNEL_NAMES = ("conv1x1_bn_act", "max_pool2d_fwd_idx", "max_pool2d_bwd",
                 "grouped_conv2d", "depthwise_conv2d", "mbconv_full",
-                "mbconv_stats", "mbconv_raw")
+                "mbconv_stats", "mbconv_raw", "matmul_int8")
 
 
 def launches(conv1x1=0, pool_fwd=0, pool_bwd=0, grouped=0, depthwise=0,
-             mb_full=0, mb_stats=0, mb_raw=0):
+             mb_full=0, mb_stats=0, mb_raw=0, int8=0):
     return dict(zip(KERNEL_NAMES, (conv1x1, pool_fwd, pool_bwd, grouped,
-                                   depthwise, mb_full, mb_stats, mb_raw)))
+                                   depthwise, mb_full, mb_stats, mb_raw,
+                                   int8)))
 
 
 # tag → (models.build name, config, launches per serving or validate
@@ -344,6 +372,31 @@ CLI_FOLDER_BATCH, CLI_PREDICT = 64, 17
 LSB_SHARE = 0.8
 # STEP_P50_MS: phase 4b's bf16 step p50 (host clock) by model, for 4k
 STEP_P50_MS = {}
+# int8 serving (phase 2's int8 checks, phase 4m): the models served under
+# Predictor(quantize="int8"), calibrated on INT8_CALIBRATION seeded uint8
+# images; tag → launches per int8 forward (every 1x1 of both is eligible at
+# 224: its stride is 1 and its map at least 7x7; MobileNet-V2's blocks run
+# layer by layer, 17 depthwise convs on their kernel)
+INT8_CALIBRATION = 64
+INT8_MODELS = {"resnet50": launches(pool_fwd=1, int8=33),
+               "mobilenet_v2": launches(depthwise=17, int8=34)}
+# the int8 kernel vs its plain version, |err| <= tol * (1 + |ref|): the same
+# int8 values and exact int32 sums; float32: the same float32 epilogue, op
+# by op; bf16: the kernel does not round the dequantized value to bf16
+# before the scale and shift (scripts/port_numerics.py int8: at most 2 ulps
+# where |out| >= 1, 0.0064 of 1 + |out| where the shift cancels)
+INT8_TOL = {"bf16": 1e-2, "float32": 1e-5}
+# off the paths: (M, K, N, act): K % 32 != 0, K * 2 % 16 != 0 (the scalar
+# loads in bf16), N odd (single stores), M under one tile
+INT8_RAGGED = [(49, 72, 40, "relu6"), (67, 60, 72, "relu"),
+               (130, 24, 136, "none"), (3, 5, 3, "none"),
+               (200, 70, 65, "relu")]
+# Inception v3's 17x17 1x1s, K = 768, join phase 2's int8 checks
+INT8_INCEPTION_K = 768
+# phase 4m: int8 against bf16 logits (tests/test_quant.py:74-89); HTTP:
+# single-image requests from client threads
+INT8_CORR, INT8_TOP1 = 0.99, 0.75
+HTTP_REQUESTS, HTTP_CLIENTS, HTTP_EXPORTED_REQUESTS = 128, 16, 17
 
 T0 = time.perf_counter()
 
@@ -1179,7 +1232,7 @@ def time_pool(torch, F, mp, x, dy, idx, k, s, p):
 
 def reset_counts(k):
     k.mf.launches = k.mp.fwd_launches = k.mp.bwd_launches = 0
-    k.gc.launches = k.dc.launches = 0
+    k.gc.launches = k.dc.launches = k.mi.launches = 0
     k.mb.full_launches = k.mb.stats_launches = k.mb.raw_launches = 0
 
 
@@ -1187,7 +1240,8 @@ def counts(k):
     return dict(zip(KERNEL_NAMES, (k.mf.launches, k.mp.fwd_launches,
                                    k.mp.bwd_launches, k.gc.launches,
                                    k.dc.launches, k.mb.full_launches,
-                                   k.mb.stats_launches, k.mb.raw_launches)))
+                                   k.mb.stats_launches, k.mb.raw_launches,
+                                   k.mi.launches)))
 
 
 def add_counts(a, b):
@@ -2388,6 +2442,463 @@ def zoo(torch, card, k):
     return total
 
 
+def int8_predictor(tag, size):
+    """The bf16 int8 Predictor of INT8_MODELS' ``tag`` (weights from SEED)
+    at ``size``, calibrated on INT8_CALIBRATION seeded uint8 images."""
+    from convnet_tpu_torch.serve import Predictor
+    name, config = MODELS[tag][:2]
+    calib = np.random.default_rng(SEED + 5).integers(
+        0, 256, (INT8_CALIBRATION, size, size, 3), np.uint8)
+    return Predictor(name, config, dtype="bf16", batch_size=SERVE_BATCH,
+                     input_size=size, quantize="int8", calibration=calib,
+                     seed=SEED)
+
+
+def int8_paths(torch, images):
+    """What one int8 forward of each INT8_MODELS model at SERVE_BATCH runs:
+    {tag: {(M, K, N, act, with the folded BN): int8 launches}}, read by
+    wrapping ``matmul_int8`` during one forward of ``images``; each must be
+    ``len(act_scales)``. The predictors are freed after."""
+    from convnet_tpu_torch.ops.kernels import matmul_int8 as mi
+    paths = {}
+    real = mi.matmul_int8
+    for tag in INT8_MODELS:
+        predictor = int8_predictor(tag, images.shape[1])
+        shapes = {}
+
+        def seen(x, w, act_scale, scale=None, shift=None, act="none"):
+            key = (x.shape[0], x.shape[1], w.shape[0], act,
+                   scale is not None)
+            shapes[key] = shapes.get(key, 0) + 1
+            return real(x, w, act_scale, scale, shift, act)
+
+        mi.matmul_int8 = seen
+        try:
+            predictor.predict_logits(images)
+        finally:
+            mi.matmul_int8 = real
+        found = sum(shapes.values())
+        log(f"{tag} int8: {found} int8 convs a forward over {len(shapes)} "
+            f"distinct (M, K, N, act, BN); {len(predictor.act_scales)} "
+            f"calibrated scales")
+        if found != len(predictor.act_scales) \
+                or found != INT8_MODELS[tag]["matmul_int8"]:
+            raise RuntimeError(f"{tag}: {found} int8 convs a forward, "
+                               f"{len(predictor.act_scales)} scales, "
+                               f"expected {INT8_MODELS[tag]['matmul_int8']}")
+        paths[tag] = shapes
+        del predictor
+        torch.cuda.empty_cache()
+    return paths
+
+
+def int8_bound(m, k, n, dname):
+    """Least time (ms) of the int8 1x1 at this shape: x in its type, the
+    int8 weight and the output in x's type each moved once against the HBM
+    rate; 2MKN int8 operations against the int8 dense peak. Returns (ms,
+    "bytes" | "operations")."""
+    e = 2 if dname == "bf16" else 4
+    bytes_ms = (m * k * e + n * k + m * n * e + 3 * n * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * m * k * n / PEAK_OPS_PER_S["int8"] * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def int8_variant_expected(x):
+    """The int8 kernel's shape rule for a fresh, aligned x: rows of whole
+    16-byte vectors take the vector loads, others the scalar ones."""
+    return "vector" if x.shape[1] * x.element_size() % 16 == 0 else "scalar"
+
+
+def check_matmul_int8(torch, paths, inception):
+    """Phase 2 for the int8 1x1: the kernel against its plain version at
+    every (M, K, N, act, BN) of the int8 paths (``paths``, at batch 64 and
+    1), at Inception v3's 17x17 1x1s at batch 64 (``inception``: (M, K, N,
+    act)), and at INT8_RAGGED, in bf16 and float32, each with its variant
+    against the rule. In bf16 at batch 64 on the paths: the wrapper's time,
+    the kernel alone (from a CUDA graph), the plain version's, the unfused
+    chain's (a quantize pass, ``torch._int_mm``, a dequantize pass with the
+    BN and the activation) and the bf16 fused 1x1's at the same shape
+    (wrapper and kernel alone), beside the bound. Returns per-forward sums
+    by model and the largest error."""
+    from convnet_tpu_torch.ops.kernels import matmul_fused as mf
+    from convnet_tpu_torch.ops.kernels import matmul_int8 as mi
+    dtypes = {"bf16": torch.bfloat16, "float32": torch.float32}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = []
+    for key in sorted({key for shapes in paths.values() for key in shapes}):
+        m, k, n, act, bn = key
+        for batch in (SERVE_BATCH, 1):
+            cases.append((m // SERVE_BATCH * batch, k, n, act, bn, batch,
+                          key))
+    cases += [(m, k, n, act, True, SERVE_BATCH, None)
+              for m, k, n, act in inception]
+    cases += [(m, k, n, act, bn, None, None)
+              for m, k, n, act in INT8_RAGGED for bn in (True, False)]
+    timed, failures, variants = {}, [], {}
+    max_err = 0.0
+    for m, k, n, act, bn, batch, key in cases:
+        for dname, dtype in dtypes.items():
+            x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+            w = torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5
+            scale = shift = None
+            if bn:
+                scale = torch.rand(n, generator=gen, device="cuda") + 0.5
+                shift = torch.randn(n, generator=gen, device="cuda") * 0.5
+            act_scale = float(x.float().abs().max()) / 127 * 0.9
+            out = mi.matmul_int8(x, w, act_scale, scale, shift, act)
+            ref = mi.matmul_int8_plain(x, w, act_scale, scale, shift, act)
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs()
+            tol = INT8_TOL[dname]
+            kind = mi.variant(x)
+            rec = {"check": "matmul_int8", "dtype": dname, "batch": batch,
+                   "M": m, "K": k, "N": n, "act": act, "folded_bn": bn,
+                   "variant": kind,
+                   "launches_per_forward": {
+                       tag: shapes.get(key, 0)
+                       for tag, shapes in paths.items()} if key else None,
+                   "max_abs_err": diff.max().item(),
+                   "bit_equal": bool(torch.equal(out, ref)), "tol": tol,
+                   "ok": bool((diff <= tol * (1 + ref.float().abs())).all())
+                   and kind == int8_variant_expected(x)}
+            if key is not None:
+                max_err = max(max_err, rec["max_abs_err"])
+                variants.setdefault(dname, set()).add(kind)
+            if key is not None and batch == SERVE_BATCH and dname == "bf16":
+                wq, sw = mi.kernel_weight(w)
+                inv, eff = mi.inverse_scale(act_scale, dtype)
+                y = torch.empty((m, n), dtype=dtype, device="cuda")
+                rec["ms"] = cuda_ms(torch, lambda: mi.matmul_int8(
+                    x, w, act_scale, scale, shift, act))
+                rec["kernel_ms"] = kernel_alone_ms(
+                    torch, lambda: mi._call(x, wq, sw, scale, shift, y, k,
+                                            inv, eff, act))
+                rec["plain_ms"] = cuda_ms(torch, lambda: mi.matmul_int8_plain(
+                    x, w, act_scale, scale, shift, act))
+                wq_t = wq[:, :k].contiguous().t()       # (K, N) column-major
+                deq = torch.tensor(eff, dtype=torch.float32,
+                                   device="cuda") * sw
+                one = torch.ones(n, device="cuda") if scale is None else scale
+                zero = (torch.zeros(n, device="cuda") if shift is None
+                        else shift)
+
+                def chain():
+                    q = torch.clamp(torch.round(x * inv), -127, 127).to(
+                        torch.int8)
+                    acc = torch._int_mm(q, wq_t)
+                    v = acc.float() * (deq * one) + zero
+                    return mi._act(v, act).to(dtype)
+
+                rec["library_ms"] = cuda_ms(torch, chain)
+                wt = mf.kernel_weight(w.t(), dtype)
+                s1 = one if bn else torch.ones(n, device="cuda")
+                yf = torch.empty((m, n), dtype=dtype, device="cuda")
+                rec["fused_1x1_bf16_ms"] = cuda_ms(
+                    torch, lambda: mf.matmul_scale_act(x, w.t(), s1, zero,
+                                                       act))
+                rec["fused_1x1_bf16_kernel_ms"] = kernel_alone_ms(
+                    torch, lambda: mf._call(x, wt, s1, zero, yf, act))
+                rec["bound_ms"], rec["bound_by"] = int8_bound(m, k, n, dname)
+                timed[key] = rec
+            emit(rec)
+            if not rec["ok"]:
+                failures.append(rec)
+    if failures:
+        raise RuntimeError(f"matmul_int8 disagrees with its plain version in "
+                           f"{len(failures)} case(s)")
+    names = ("ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+             "fused_1x1_bf16_ms", "fused_1x1_bf16_kernel_ms")
+    totals = {}
+    for tag, shapes in paths.items():
+        total = dict.fromkeys(names + ("bytes_bound_ms",), 0.0)
+        for key, per_fwd in shapes.items():
+            rec = timed[key]
+            for name in names:
+                total[name] += per_fwd * rec[name]
+            if rec["bound_by"] == "bytes":
+                total["bytes_bound_ms"] += per_fwd * rec["bound_ms"]
+        total["bound_by"] = ("bytes" if total["bytes_bound_ms"] * 2
+                             >= total["bound_ms"] else "operations")
+        totals[tag] = total
+        log(f"{tag} int8 1x1s a forward: {total['kernel_ms']:.3f} ms alone, "
+            f"{total['ms']:.3f} through the wrapper, bound "
+            f"{total['bound_ms']:.3f}; the unfused chain "
+            f"{total['library_ms']:.3f}, the bf16 fused 1x1 "
+            f"{total['fused_1x1_bf16_kernel_ms']:.3f} alone")
+    return totals, max_err, {d: sorted(v) for d, v in variants.items()}
+
+
+def _timed_requests(predictor, images, n):
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        predictor.predict_logits(images)
+        times.append(time.perf_counter() - t)
+    return times
+
+
+def serve_int8(torch, card, k, tag, images, bf16):
+    """Phase 4m(a) for one model: the int8 Predictor answers REQUESTS,
+    counted (int8 launches ``len(act_scales)`` a forward, no fused 1x1 and
+    no MBConv), finite, unchanged by the padding rows, and against the bf16
+    Predictor ``bf16`` (correlation and top-1 agreement); then throughput at
+    SERVE_BATCH and batch-1 p50 latency, the two predictors in turns.
+    Returns (the predictor, the launch counts of its counted runs)."""
+    import copy
+    q = int8_predictor(tag, images.shape[1])
+    per_forward = dict(INT8_MODELS[tag])
+    if len(q.act_scales) != per_forward["matmul_int8"]:
+        raise RuntimeError(f"{tag}: {len(q.act_scales)} calibrated scales")
+    reset_counts(k)
+    logits = [q.predict_logits(images[:n]) for n in REQUESTS]
+    got = counts(k)
+    expect_counts(f"{tag} int8 serving", got,
+                  {n: v * len(REQUESTS) for n, v in per_forward.items()})
+    for n, out in zip(REQUESTS, logits):
+        if out.shape != (n, 1000) or not np.isfinite(out).all():
+            raise RuntimeError(f"{tag} int8: bad logits for a request of "
+                               f"{n}")
+    pad = max(float(np.abs(out - logits[0][:n]).max())
+              for n, out in zip(REQUESTS[1:], logits[1:]))
+    if pad > PAD_TOL:
+        raise RuntimeError(f"{tag} int8: padding changed the answers: {pad}")
+    reset_counts(k)
+    ref = bf16.predict_logits(images)
+    total = add_counts(got, counts(k))
+    corr = float(np.corrcoef(ref.ravel(), logits[0].ravel())[0, 1])
+    top1 = float(np.mean(ref.argmax(-1) == logits[0].argmax(-1)))
+    log(f"{tag} int8 against bf16: correlation {corr:.6f}, top-1 agreement "
+        f"{top1:.3f}; max |padded - full| {pad:.3g}")
+    if not (corr > INT8_CORR and top1 >= INT8_TOP1):
+        raise RuntimeError(f"{tag} int8: correlation {corr}, top-1 {top1}")
+    reset_counts(k)
+    times = {"int8": [], "bf16": []}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        times[name] += _timed_requests(q if name == "int8" else bf16,
+                                       images, 5)
+    singles = {"int8": copy.copy(q), "bf16": copy.copy(bf16)}
+    lat = {"int8": [], "bf16": []}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        singles[name].batch_size = 1
+        _timed_requests(singles[name], images[:1], 2)
+        lat[name] += _timed_requests(singles[name], images[:1], 15)
+    timed = counts(k)
+    runs = 2 * 5 + 2 * (2 + 15)      # forwards of each predictor
+    expect_counts(f"{tag}: timed int8 and bf16 requests", timed,
+                  {n: runs * (per_forward[n] + MODELS[tag][2][n])
+                   for n in KERNEL_NAMES})
+    total = add_counts(total, timed)
+    rec = {"serve_int8": f"{tag}_bf16_{images.shape[1]}", "card": card,
+           "act_scales": len(q.act_scales),
+           "launches_per_int8_forward": per_forward,
+           "corr_vs_bf16": corr, "top1_agreement_vs_bf16": top1,
+           "max_pad_diff": pad}
+    for name in ("int8", "bf16"):
+        p50 = statistics.median(times[name])
+        rec[f"{name}_batch64_p50_ms"] = p50 * 1e3
+        rec[f"{name}_images_per_s"] = SERVE_BATCH / p50
+        rec[f"{name}_batch1_p50_ms"] = statistics.median(lat[name]) * 1e3
+    rec["note"] = ("host clock around predict_logits, H2D and D2H included; "
+                   "p50 of 10 (batch 64) and 30 (batch 1), int8 and bf16 in "
+                   "turns")
+    emit(rec)
+    log(f"{tag}: int8 {rec['int8_images_per_s']:.1f} img/s at batch 64 "
+        f"(bf16 {rec['bf16_images_per_s']:.1f}); batch 1 p50 "
+        f"{rec['int8_batch1_p50_ms']:.2f} ms (bf16 "
+        f"{rec['bf16_batch1_p50_ms']:.2f})")
+    return q, total
+
+
+def _post(port, body, ctype, path="/predict?topk=5"):
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers={"Content-Type": ctype},
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def _npy(arr):
+    import io
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def check_http(torch, card, k, predictor, exported, images, tmp):
+    """Phase 4m(d): a PredictionServer on 127.0.0.1 (port 0) over the bf16
+    ResNet-50 ``predictor``: HTTP_REQUESTS single-image npy POSTs from
+    HTTP_CLIENTS threads, each reply's top-5 the predictor's top-5 of that
+    image; the batches the batcher formed, requests a second, p50 and p99
+    request ms; one JPEG POST and the decoder it went through; /healthz; a
+    400 for a wrongly sized npy. Then a server over ``exported`` answers
+    HTTP_EXPORTED_REQUESTS requests. Returns the launch counts."""
+    import urllib.error
+    import urllib.request
+    from PIL import Image
+    from convnet_tpu_torch.serve_http import PredictionServer
+    x = np.concatenate([images, images[:, ::-1]])[:HTTP_REQUESTS]
+    reset_counts(k)
+    ref = predictor.predict_logits(x)
+    total = counts(k)
+    want_top5 = [list(map(int, np.argsort(-r)[:5])) for r in ref]
+    server = PredictionServer(predictor, "127.0.0.1", 0).start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/healthz",
+                                    timeout=30) as resp:
+            health = json.loads(resp.read())
+        if health != {"status": "ok", "batch_size": SERVE_BATCH,
+                      "input_size": images.shape[1]}:
+            raise RuntimeError(f"/healthz: {health}")
+        reset_counts(k)
+        bodies = [_npy(img) for img in x]
+        replies, ms = [None] * len(x), [0.0] * len(x)
+
+        def hit(i):
+            t = time.perf_counter()
+            replies[i] = _post(server.port, bodies[i], "application/x-npy")
+            ms[i] = (time.perf_counter() - t) * 1e3
+
+        t = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+            list(pool.map(hit, range(len(x))))
+        wall = time.perf_counter() - t
+        served = counts(k)
+        batches = server.batcher.batches
+        expect_counts(f"HTTP: {len(x)} requests in {batches} device batches",
+                      served, {n: batches * v for n, v in
+                               MODELS["resnet50"][2].items()})
+        total = add_counts(total, served)
+        wrong = [i for i, r in enumerate(replies)
+                 if [c for c, _ in r["topk"]] != want_top5[i]]
+        if wrong:
+            raise RuntimeError(f"HTTP: {len(wrong)} replies' top-5 differ "
+                               f"from the predictor's (first {wrong[:5]})")
+        path = os.path.join(tmp, "request.jpg")
+        Image.fromarray(images[0]).resize((320, 256)).save(path, "JPEG")
+        with open(path, "rb") as f:
+            jpeg = _post(server.port, f.read(), "image/jpeg")
+        try:
+            _post(server.port, _npy(np.zeros((64, 64, 3), np.uint8)),
+                  "application/x-npy")
+            raise RuntimeError("HTTP: a 64x64 npy was not refused")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                raise
+        total = add_counts(total, counts(k))
+        rec = {"http": "resnet50_bf16_224", "card": card,
+               "requests": len(x), "client_threads": HTTP_CLIENTS,
+               "device_batches": batches,
+               "requests_per_s": len(x) / wall,
+               "request_p50_ms": float(np.percentile(ms, 50)),
+               "request_p99_ms": float(np.percentile(ms, 99)),
+               "jpeg_decoder": jpeg["decoder"],
+               "note": "wall clock from the first request sent to the last "
+                       "reply read; per request the client's round trip"}
+    finally:
+        server.stop()
+    log(f"HTTP: {len(x)} requests from {HTTP_CLIENTS} threads in "
+        f"{batches} device batches, {rec['requests_per_s']:.1f} req/s, p50 "
+        f"{rec['request_p50_ms']:.1f} ms, p99 {rec['request_p99_ms']:.1f} "
+        f"ms; the JPEG went through {jpeg['decoder']}")
+    server = PredictionServer(exported, "127.0.0.1", 0).start()
+    try:
+        reset_counts(k)
+        want = exported.predict_logits(x[:HTTP_EXPORTED_REQUESTS]).argmax(-1)
+        top1 = [_post(server.port, _npy(img), "application/x-npy",
+                      "/predict?topk=1")["topk"][0][0]
+                for img in x[:HTTP_EXPORTED_REQUESTS]]
+        total = add_counts(total, counts(k))
+    finally:
+        server.stop()
+    if top1 != [int(c) for c in want]:
+        raise RuntimeError("HTTP over the exported artifact: top-1 differs")
+    rec["exported_requests"] = HTTP_EXPORTED_REQUESTS
+    emit(rec)
+    return total
+
+
+def serve_rest(torch, card, k, images):
+    """Phase 4m, the rest of serving, bf16 at full width: (a) int8 serving
+    of ResNet-50 and MobileNet-V2; (b) ResNet-50 in bf16 and int8 exported,
+    loaded and served on the card, against the Predictor; (c)
+    ``devices="all"`` against ``devices=None``; (d) the HTTP server. Returns
+    the phase's launch counts, every counted run read from counts set to 0
+    just before it."""
+    from convnet_tpu_torch.serve import Predictor, load_exported
+    total = launches()
+    bf16 = {}
+    int8 = {}
+    for tag in INT8_MODELS:
+        name, config = MODELS[tag][:2]
+        bf16[tag] = Predictor(name, config, dtype="bf16",
+                              batch_size=SERVE_BATCH,
+                              input_size=images.shape[1], seed=SEED)
+        int8[tag], counted = serve_int8(torch, card, k, tag, images,
+                                        bf16[tag])
+        total = add_counts(total, counted)
+    del bf16["mobilenet_v2"], int8["mobilenet_v2"]
+    torch.cuda.empty_cache()
+
+    exported = {}
+    for kind, predictor in (("bf16", bf16["resnet50"]),
+                            ("int8", int8["resnet50"])):
+        t = time.perf_counter()
+        data = predictor.export()
+        export_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ep = load_exported(data)
+        load_s = time.perf_counter() - t
+        per_forward = (MODELS["resnet50"][2] if kind == "bf16"
+                       else INT8_MODELS["resnet50"])
+        same, err = True, 0.0
+        for n in (SERVE_BATCH, 17):
+            reset_counts(k)
+            out = ep.predict_logits(images[:n])
+            got = counts(k)
+            expect_counts(f"exported resnet50 {kind}, {n} images", got,
+                          per_forward)
+            total = add_counts(total, got)
+            reset_counts(k)
+            want = predictor.predict_logits(images[:n])
+            total = add_counts(total, counts(k))
+            err = max(err, rel_err(out, want))
+            same = same and bool(np.array_equal(out, want))
+            if err > SERVE_TOL["bf16"]:
+                raise RuntimeError(f"exported resnet50 {kind}: logits "
+                                   f"{err} from the Predictor's")
+        emit({"export": f"resnet50_{kind}_224", "card": card,
+              "export_s": export_s, "load_s": load_s,
+              "artifact_bytes": len(data), "bit_equal_to_predictor": same,
+              "max_rel_err_vs_predictor": err,
+              "launches_per_forward": per_forward})
+        log(f"resnet50 {kind}: exported in {export_s:.1f}s ({len(data)} "
+            f"bytes), loaded in {load_s:.1f}s; logits bit-equal to the "
+            f"Predictor's: {same} (max diff {err:.3g} of the largest)")
+        exported[kind] = ep
+
+    name, config = MODELS["resnet50"][:2]
+    every = Predictor(name, config, dtype="bf16", batch_size=SERVE_BATCH,
+                      input_size=images.shape[1], seed=SEED, devices="all")
+    reset_counts(k)
+    a = every.predict_logits(images)
+    b = bf16["resnet50"].predict_logits(images)
+    total = add_counts(total, counts(k))
+    if len(every.devices) != torch.cuda.device_count() \
+            or not np.array_equal(a, b):
+        raise RuntimeError("devices='all' differs from devices=None")
+    log(f"devices='all' ({len(every.devices)} card): logits bit-equal to "
+        f"devices=None")
+    del every, int8
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        total = add_counts(total, check_http(
+            torch, card, k, bf16["resnet50"], exported["bf16"], images, tmp))
+    return total
+
+
 def kernel_launches(torch, fn):
     """CUDA kernels (not copies or sets) that one call of ``fn`` launches,
     counted by torch.profiler; None where it recorded no device event (not
@@ -2484,10 +2995,11 @@ def main():
     from convnet_tpu_torch.ops.kernels import depthwise_conv as dc
     from convnet_tpu_torch.ops.kernels import grouped_conv as gc
     from convnet_tpu_torch.ops.kernels import matmul_fused as mf
+    from convnet_tpu_torch.ops.kernels import matmul_int8 as mi
     from convnet_tpu_torch.ops.kernels import max_pool as mp
     from convnet_tpu_torch.ops.kernels import mbconv as mb
     from convnet_tpu_torch.serve import Predictor
-    k = types.SimpleNamespace(mf=mf, mp=mp, gc=gc, dc=dc, mb=mb)
+    k = types.SimpleNamespace(mf=mf, mp=mp, gc=gc, dc=dc, mb=mb, mi=mi)
     # full float32 in matmuls and convs: the float32 checks compare exactly
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2567,6 +3079,12 @@ def main():
                            f"{mb_path}, expected 13")
     mbconv = check_mbconv(torch, mb_path)
     log("the MBConv kernels agree with their plain versions at every shape")
+    int8_path = int8_paths(torch, images)
+    inception_17 = sorted(key for key in path["inception_v3"]
+                          if key[1] == INT8_INCEPTION_K)
+    int8, int8_err, int8_variants = check_matmul_int8(torch, int8_path,
+                                                      inception_17)
+    log("matmul_int8 agrees with its plain version at every shape")
     seconds["kernels"] = time.perf_counter() - t
 
     # -- 3. serve: the main path, counted, model by model
@@ -2622,6 +3140,11 @@ def main():
     t = time.perf_counter()
     path_counts["zoo"] = zoo(torch, card, k)
     seconds["zoo"] = time.perf_counter() - t
+
+    # -- 4m. the rest of serving: int8, export, devices, HTTP
+    t = time.perf_counter()
+    path_counts["serve_rest"] = serve_rest(torch, card, k, images)
+    seconds["serve_rest"] = time.perf_counter() - t
     seconds["total"] = time.perf_counter() - t0
     emit({"seconds_by_phase": seconds})
 
@@ -2630,7 +3153,7 @@ def main():
     # wrapper's weight casts and copies included); kernel_ms, the kernel
     # alone (its launches replayed from a CUDA graph); launches, the serving,
     # the training, the large-batch LARS, the batch-augmentation, the remat,
-    # the CIFAR, the CLI and the zoo's runs together
+    # the CIFAR, the CLI, the zoo's and the rest of serving's runs together
     by_path = {"serve": serve_counts, "train": train_counts, **path_counts}
 
     def row(name, source, replaces, ms, kernel_ms, plain_ms, bound_ms,
@@ -2708,6 +3231,24 @@ def main():
             f"MobileNet-V2 {what}", shapes=res["shapes"],
             variants_at_path_shapes=res["variants"],
             tensor_core_floor_ms=res["tensor_core_floor_ms"]))
+    i8 = int8["resnet50"]
+    rows.append(row(
+        "matmul_int8", "matmul_int8.cu", "", i8["ms"], i8["kernel_ms"],
+        i8["plain_ms"], i8["bound_ms"], i8["bound_by"], i8["library_ms"],
+        "the unfused chain: a quantize pass, torch._int_mm, a dequantize "
+        "pass with the folded BN and the activation", int8_err,
+        f"sum over the 33 launches of one batch-{SERVE_BATCH} bf16 int8 "
+        f"ResNet-50 forward", variants_at_path_shapes=int8_variants,
+        fused_1x1_bf16_ms=i8["fused_1x1_bf16_ms"],
+        fused_1x1_bf16_kernel_ms=i8["fused_1x1_bf16_kernel_ms"],
+        per_forward_by_model={
+            tag: {key: v[key] for key in (
+                "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "fused_1x1_bf16_ms", "fused_1x1_bf16_kernel_ms")}
+            for tag, v in int8.items()}))
+    # no Pallas kernel: the reference's lax.dot between its quantize and
+    # dequantize passes
+    rows[-1]["replaces"] = "convnet_tpu/nn/quant.py:138"
     emit({"kernels": rows})
     faulthandler.cancel_dump_traceback_later()
     print(card, flush=True)

@@ -14,7 +14,8 @@ in training ``mbconv_train``, a Stats and a Raw kernel a block, whose
 backward recomputes the block layer by layer. The 4 stride-2 blocks run
 layer by layer: in eval the expand and the project on the fused 1x1 kernel
 (with the last 320→1280 conv, 9 launches a forward), the depthwise conv on
-its kernel in both modes.
+its kernel in both modes. Under int8 serving no block is fused: the
+expand and project convs take the int8 kernel, the depthwise convs theirs.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ class ConvBNReLU6(ConvBN):
 
 
 class InvertedResidual(nn.Module):
+    quant = None   # the model's nn.quant.QuantState, set by nn.quant.attach
+
     def __init__(self, in_ch, out_ch, stride, expand_ratio):
         super().__init__()
         hidden = int(round(in_ch * expand_ratio))
@@ -53,8 +56,10 @@ class InvertedResidual(nn.Module):
         self.block = Sequential(*layers)
 
     def uses_kernel(self):
-        """The fused route, in training and in eval: stride 1, 3x3."""
-        return mbconv.supported(self.stride, 3)
+        """The fused route, in training and in eval: stride 1, 3x3; never
+        under int8 serving or its calibration (the reference's
+        ``mobilenet_v2.py:66``), where the block runs layer by layer."""
+        return self.quant is None and mbconv.supported(self.stride, 3)
 
     def _fused(self, x):
         kids = list(self.block)

@@ -9,7 +9,10 @@ In eval, every 1x1 stride-1 ungrouped ``ConvBN`` runs as one fused kernel
 the JAX package takes with ``impl="pallas"``; on a CUDA tensor that is the
 hand-written kernel. At depth 50 that is 33 launches per forward. The
 folded BN (like the kernel's weight layouts) is made once per version of
-the BN's parameters and statistics (``ops/kernels/_prepared.py``). In
+the BN's parameters and statistics (``ops/kernels/_prepared.py``). Under
+int8 serving (``nn/quant.py``) each eligible 1x1 ``ConvBN`` is one launch
+of the int8 kernel instead, the folded BN and the activation in its
+epilogue (``ops/kernels/matmul_int8.py``): 33 a ResNet-50 forward. In
 training a ``ConvBN`` is conv → batch-statistics BN → ReLU. The stem's max
 pool runs the pool kernels (``ops/kernels/max_pool.py``) in both modes. In
 ResNeXt (``groups`` > 1) every eval stride-1 grouped 3x3 runs the grouped
@@ -43,6 +46,7 @@ from convnet_tpu_torch.nn import (BatchNorm2d, CheckpointModule, Conv2d,
                                   GlobalAvgPool, Linear, MaxPool2d, SEBlock)
 from convnet_tpu_torch.ops.kernels import _prepared
 from convnet_tpu_torch.ops.kernels.matmul_fused import conv1x1_bn_act
+from convnet_tpu_torch.ops.kernels.matmul_int8 import conv1x1_int8_bn_act
 from convnet_tpu_torch.regimes import schedules
 
 
@@ -87,6 +91,10 @@ class ConvBN(nn.Module):
                 and self.conv.groups == 1)
 
     def forward(self, x):
+        act_scale = self.conv.int8_scale(x)
+        if act_scale is not None:
+            return conv1x1_int8_bn_act(x, self.conv.weight, act_scale,
+                                       *folded_bn(self.bn), act=self.act)
         if self.uses_kernel():
             scale, shift = folded_bn(self.bn)
             return conv1x1_bn_act(x, self.conv.weight, scale, shift,

@@ -12,6 +12,9 @@ eval grouped conv (cin == cout) to ``ops/kernels/grouped_conv.py`` and a
 depthwise conv, in training and in eval, to
 ``ops/kernels/depthwise_conv.py``. Every other conv runs ``ops.conv2d``.
 A conv's bias, where it has one, is added in float32 after any route.
+Under int8 serving (``nn/quant.py``: a ``QuantState`` set on the conv) an
+eligible 1x1 conv takes the int8 kernel before any other route
+(``ops/kernels/matmul_int8.py``), its bias as the kernel's shift.
 
 Not ported: ``SpaceToDepth`` and the spatially sharded branches of
 ``Flatten``, ``MaxPool2d``, ``AvgPool2d`` and ``GlobalAvgPool``.
@@ -25,7 +28,9 @@ from torch import nn
 
 from convnet_tpu_torch import ops
 from convnet_tpu_torch.core import initializers as init
-from convnet_tpu_torch.ops.kernels import depthwise_conv, grouped_conv
+from convnet_tpu_torch.nn import quant
+from convnet_tpu_torch.ops.kernels import (depthwise_conv, grouped_conv,
+                                           matmul_int8)
 from convnet_tpu_torch.ops.norm import running_update
 
 
@@ -35,7 +40,10 @@ def _pair(v):
 
 class Conv2d(nn.Module):
     """NHWC conv; weight OIHW, optional bias. ``padding`` is an int or a
-    per-axis pair (ph, pw)."""
+    per-axis pair (ph, pw). ``quant``: the model's ``nn.quant.QuantState``
+    under int8 serving or its calibration, else None."""
+
+    quant = None
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, bias=False):
@@ -85,7 +93,19 @@ class Conv2d(nn.Module):
                 and isinstance(self.padding, int)
                 and depthwise_conv.supported(self.stride))
 
+    def int8_scale(self, x):
+        """The static activation scale of this conv's int8 route for x, or
+        None: without a quant state, where the conv or x's shape is not
+        eligible, and while calibrating (x's range is then recorded)."""
+        if self.quant is None or not quant.conv_eligible(self, x.shape):
+            return None
+        return self.quant.take(x)
+
     def forward(self, x):
+        act_scale = self.int8_scale(x)
+        if act_scale is not None:
+            return matmul_int8.conv1x1_int8_bn_act(x, self.weight, act_scale,
+                                                   shift=self.bias)
         if self.uses_grouped_kernel():
             y = grouped_conv.grouped_conv2d(x, self.weight, self.stride,
                                             self.padding, self.groups)

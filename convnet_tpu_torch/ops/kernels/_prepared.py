@@ -13,7 +13,8 @@ call still finds the entry.
 Where autograd is recording and a source requires grad, nothing is cached:
 the value is made afresh, with its graph, as before. Cached values are made
 outside inference mode and without grad, so they are plain tensors that any
-later call may read.
+later call may read. While ``torch.export`` traces, nothing is cached either:
+the value is made in the traced graph from the tensors it traces.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ _CACHE = {}   # key → (weak references to the sources' bases, versions, value)
 def get(tag, sources, make):
     """``make(*sources)``, computed once per version of ``sources``. ``tag``
     names what is made (and anything else it depends on, such as a type)."""
+    if torch.compiler.is_compiling():
+        return make(*sources)
     grad = torch.is_grad_enabled()
     bases, key, versions = [], [tag], []
     for t in sources:

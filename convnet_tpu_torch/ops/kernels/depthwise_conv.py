@@ -23,7 +23,9 @@ The op is differentiable with the reference's backward (``depthwise.py``
 flipped weight and padding k - 1 - p (a crop of dy where p > k - 1); at
 stride 2 dx is the library's transposed conv, which XLA computes in the
 reference; dw is the reference's per-tap Σ over (b, i, j) of x · dy in
-float32, in plain torch ops.
+float32, in plain torch ops. While ``torch.export`` traces, the inference
+route is the registered op ``convnet_tpu_torch::depthwise_conv2d``, whose
+implementation is the same launch (or the plain version on the CPU).
 """
 
 from __future__ import annotations
@@ -129,6 +131,20 @@ _OP = types.SimpleNamespace(forward=_forward,
                             weight_grad=_weight_grad)
 
 
+@torch.library.custom_op("convnet_tpu_torch::depthwise_conv2d",
+                         mutates_args=())
+def _op(x: torch.Tensor, w: torch.Tensor, stride: list[int],
+        padding: list[int]) -> torch.Tensor:
+    return _forward(x, w, stride, padding, cached=True)
+
+
+@_op.register_fake
+def _(x, w, stride, padding):
+    _, _, _, (ho, wo) = _conv.geometry(x.shape, tuple(w.shape[2:]), stride,
+                                       padding)
+    return x.new_empty((x.shape[0], ho, wo, x.shape[3]))
+
+
 def depthwise_conv2d(x, w, stride=1, padding=0):
     """x (B, H, W, C); w (C, 1, kh, kw), cast to x's type; stride 1 or 2;
     padding >= 0. Returns y (B, Ho, Wo, C) in x's type. Differentiable;
@@ -136,4 +152,6 @@ def depthwise_conv2d(x, w, stride=1, padding=0):
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _conv.Conv.apply(_OP, x, w.to(x.dtype), stride, padding,
                                 x.shape[-1])
+    if torch.compiler.is_compiling():
+        return _op(x, w, list(_conv.pair(stride)), list(_conv.pair(padding)))
     return _forward(x, w, stride, padding, cached=True)

@@ -22,7 +22,9 @@ The op is differentiable with the reference's backward (``grouped.py``
 in space and transposed within each group and padding k - 1 - p (a crop of
 dy where p > k - 1); at stride 2 dx is the library's transposed conv, and dw
 is the library's grouped weight gradient at every stride, as the reference
-leaves both to XLA.
+leaves both to XLA. While ``torch.export`` traces, the inference route is
+the registered op ``convnet_tpu_torch::grouped_conv2d``, whose
+implementation is the same launch (or the plain version on the CPU).
 """
 
 from __future__ import annotations
@@ -178,6 +180,19 @@ _OP = types.SimpleNamespace(forward=_forward, dx_weight=flip_transpose,
                             weight_grad=_weight_grad)
 
 
+@torch.library.custom_op("convnet_tpu_torch::grouped_conv2d", mutates_args=())
+def _op(x: torch.Tensor, w: torch.Tensor, stride: list[int],
+        padding: list[int], groups: int) -> torch.Tensor:
+    return _forward(x, w, stride, padding, groups, cached=True)
+
+
+@_op.register_fake
+def _(x, w, stride, padding, groups):
+    _, _, _, (ho, wo) = _conv.geometry(x.shape, tuple(w.shape[2:]), stride,
+                                       padding)
+    return x.new_empty((x.shape[0], ho, wo, x.shape[3]))
+
+
 def grouped_conv2d(x, w, stride=1, padding=0, groups=1):
     """x (B, H, W, C); w (C, C/groups, kh, kw), cast to x's type; stride 1
     or 2; padding >= 0. Returns y (B, Ho, Wo, C) in x's type.
@@ -186,4 +201,7 @@ def grouped_conv2d(x, w, stride=1, padding=0, groups=1):
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _conv.Conv.apply(_OP, x, w.to(x.dtype), stride, padding,
                                 groups)
+    if torch.compiler.is_compiling():
+        return _op(x, w, list(_conv.pair(stride)), list(_conv.pair(padding)),
+                   groups)
     return _forward(x, w, stride, padding, groups, cached=True)

@@ -17,7 +17,11 @@ mma.sync kernel, float32 the FMA kernel. Without autograd the weight's
 
 The op is differentiable, with the JAX package's custom VJP
 (``matmul_fused.py:92-110``): dx, dw, dscale and dshift are plain matmuls
-and sums, as they are there outside any Pallas kernel.
+and sums, as they are there outside any Pallas kernel. While ``torch.export``
+traces, the inference route calls the registered op
+``convnet_tpu_torch::matmul_scale_act`` instead, whose implementation is the
+same launch (or the plain version on the CPU), so an exported program runs
+the kernel.
 """
 
 from __future__ import annotations
@@ -172,6 +176,26 @@ class _MatmulScaleAct(torch.autograd.Function):
         return dx.to(x.dtype), dw, dscale, dshift, None
 
 
+def _run(x, w, scale, shift, act):
+    if x.is_cuda:
+        return _launch(x, w, scale, shift, act, cached=True)
+    if x.device.type == "cpu":
+        return matmul_scale_act_plain(x, w, scale, shift, act)
+    raise ValueError(f"no kernel for device {x.device}")
+
+
+@torch.library.custom_op("convnet_tpu_torch::matmul_scale_act",
+                         mutates_args=())
+def _op(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+        shift: torch.Tensor, act: str) -> torch.Tensor:
+    return _run(x, w, scale, shift, act)
+
+
+@_op.register_fake
+def _(x, w, scale, shift, act):
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
 def matmul_scale_act(x, w, scale=None, shift=None, act="relu"):
     """``act((x @ w) * scale + shift)``: x (M, K), w (K, N), scale/shift (N,)
     float32, None meaning 1 and 0. Output in x's type. Differentiable;
@@ -182,10 +206,12 @@ def matmul_scale_act(x, w, scale=None, shift=None, act="relu"):
     if shift is None:
         shift = torch.zeros(n, dtype=torch.float32, device=w.device)
     _check_args(x, w, scale, shift, act)
-    if x.is_cuda and not (torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w, scale, shift))):
-        return _launch(x, w, scale, shift, act, cached=True)
-    return _MatmulScaleAct.apply(x, w, scale, shift, act)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w, scale, shift)):
+        return _MatmulScaleAct.apply(x, w, scale, shift, act)
+    if torch.compiler.is_compiling():
+        return _op(x, w, scale, shift, act)
+    return _run(x, w, scale, shift, act)
 
 
 def conv1x1_bn_act(x, w, scale=None, shift=None, act="relu"):

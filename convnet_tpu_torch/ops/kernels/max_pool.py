@@ -262,9 +262,28 @@ def _launch_bwd(dy, idx, x_shape, kernel, stride, padding):
     return dx
 
 
+@torch.library.custom_op("convnet_tpu_torch::max_pool2d_fwd",
+                         mutates_args=())
+def _fwd_op(x: torch.Tensor, kernel: list[int], stride: list[int],
+            padding: list[int]) -> torch.Tensor:
+    return max_pool2d_fwd_idx(x, kernel, stride, padding, with_index=False)[0]
+
+
+@_fwd_op.register_fake
+def _(x, kernel, stride, padding):
+    _, _, _, (ho, wo) = _geometry(x.shape, kernel, stride, padding)
+    return x.new_empty((x.shape[0], ho, wo, x.shape[3]))
+
+
 def max_pool2d_fwd_idx(x, kernel, stride, padding, with_index=True):
     """x (B, H, W, C) → (y (B, Ho, Wo, C) in x's type, uint8 winning-tap
-    index of y's shape, or None when ``with_index`` is False)."""
+    index of y's shape, or None when ``with_index`` is False). While
+    ``torch.export`` traces, the forward without an index is the registered
+    op ``convnet_tpu_torch::max_pool2d_fwd``, whose implementation is this
+    function."""
+    if not with_index and torch.compiler.is_compiling():
+        return _fwd_op(x, list(_pair(kernel)), list(_pair(stride)),
+                       list(_pair(padding))), None
     if x.is_cuda:
         return _launch_fwd(x, kernel, stride, padding, with_index)
     if x.device.type == "cpu":

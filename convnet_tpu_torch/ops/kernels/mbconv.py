@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -458,10 +458,37 @@ def _on_cpu(x):
 def mbconv_full(x, we, s1, t1, wd9, s2, t2, wp, s3, t3, *, residual,
                 act_mid="relu6", act_out="none"):
     """The whole block with folded BN: x (B, H, W, Cin); we (Cin, Ch) or
-    None; wd9 (9, Ch); wp (Ch, Cout); s*, t* float32. y in x's type."""
-    global full_launches
+    None; wd9 (9, Ch); wp (Ch, Cout); s*, t* float32. y in x's type. While
+    ``torch.export`` traces, this is the registered op
+    ``convnet_tpu_torch::mbconv_full``, whose implementation is the same
+    launch (or the plain version on the CPU)."""
     _check(x, we, s1, t1, wd9, s2, t2, wp, s3, t3, residual=residual,
            act_mid=act_mid, act_out=act_out)
+    if torch.compiler.is_compiling():
+        return _full_op(x, we, s1, t1, wd9, s2, t2, wp, s3, t3, residual,
+                        act_mid, act_out)
+    return _full(x, we, s1, t1, wd9, s2, t2, wp, s3, t3, residual, act_mid,
+                 act_out)
+
+
+@torch.library.custom_op("convnet_tpu_torch::mbconv_full", mutates_args=())
+def _full_op(x: torch.Tensor, we: Optional[torch.Tensor],
+             s1: Optional[torch.Tensor], t1: Optional[torch.Tensor],
+             wd9: torch.Tensor, s2: torch.Tensor, t2: torch.Tensor,
+             wp: torch.Tensor, s3: torch.Tensor, t3: torch.Tensor,
+             residual: bool, act_mid: str, act_out: str) -> torch.Tensor:
+    return _full(x, we, s1, t1, wd9, s2, t2, wp, s3, t3, residual, act_mid,
+                 act_out)
+
+
+@_full_op.register_fake
+def _(x, we, s1, t1, wd9, s2, t2, wp, s3, t3, residual, act_mid, act_out):
+    return x.new_empty((*x.shape[:3], wp.shape[1]))
+
+
+def _full(x, we, s1, t1, wd9, s2, t2, wp, s3, t3, residual, act_mid,
+          act_out):
+    global full_launches
     if _on_cpu(x):
         return mbconv_full_plain(x, we, s1, t1, wd9, s2, t2, wp, s3, t3,
                                  residual=residual, act_mid=act_mid,

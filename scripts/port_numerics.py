@@ -81,13 +81,28 @@ and of the float32 card-against-CPU check in chip_smoke.py:
                 is taken away (run this part alone: it turns on JAX's
                 64-bit mode for the rest of the process)
 
+  int8          post-training int8 serving (tests/test_torch_port_quant.py):
+                the narrow ResNet-50 of tests/test_torch_port_serve.py
+                (32x32, batch 4) and MobileNet v1 at width 0.25 (64x64,
+                batch 8), the port's Predictor(quantize="int8") against the
+                JAX package's from the same weights, in float32 and bf16:
+                the calibrated scales, the logits (a share of the largest,
+                and top-1 agreement), with the port's own scales and with
+                the JAX scales set in; how often one activation's int8 value
+                differs between the packages (each quantized conv's input as
+                each package computed it, quantized with the same scale);
+                and the int8 kernel's epilogue, which skips the plain
+                version's rounding to bf16 before the folded BN, emulated
+                on the CPU at ResNet-50's shapes: the difference in bf16
+                ulps of the output and over 1 + |output|
+
 Run from the repository root (minutes; the float64 and oscillation parts
 take the most):
 
     JAX_PLATFORMS=cpu PYTHONPATH=.:tests python scripts/port_numerics.py \
         [sensitivity jax bf16_step bf16 float64 oscillation resnext
          mobilenet mobilenet_v2 trainer_features trainer_features_float64
-         mobilenet_v2_float64 cifar_se zoo]
+         mobilenet_v2_float64 cifar_se zoo int8]
 """
 
 import copy
@@ -815,13 +830,140 @@ def zoo():
               flush=True)
 
 
+def _int8_case(name):
+    """(JAX Predictor kwargs, port Predictor kwargs, images) of the int8
+    comparisons, float32; both from one JAX checkpoint."""
+    import tempfile
+    from convnet_tpu.utils.checkpoint import save_checkpoint
+    import test_torch_port_serve as S
+    if name == "resnet":
+        from convnet_tpu.models.resnet import Bottleneck as JaxBottleneck
+        from convnet_tpu_torch.models.resnet import Bottleneck
+        params, state = S._randomised_weights()
+        jax_kw = dict(model_name="resnet",
+                      model_config=dict(S.NARROW, block=JaxBottleneck))
+        port_kw = dict(model_name="resnet",
+                       model_config=dict(S.NARROW, block=Bottleneck))
+        size, batch = 32, 4
+    else:
+        import test_torch_port_models as M
+        params, state = M._jax_init("mobilenet", M.MOBILENET, seed=0,
+                                    redraw_stats=True)
+        jax_kw = port_kw = dict(model_name="mobilenet",
+                                model_config=dict(M.MOBILENET))
+        size, batch = 64, 8
+    path = tempfile.mkdtemp(prefix="int8_numerics_")
+    save_checkpoint({"params": params, "state": state, "epoch": 0}, False,
+                    path)
+    common = dict(checkpoint=path, batch_size=batch, input_size=size,
+                  quantize="int8")
+    images = np.random.default_rng(1).integers(0, 256, (batch, size, size, 3),
+                                               np.uint8)
+    return dict(jax_kw, **common), dict(port_kw, **common), images
+
+
+def int8():
+    from convnet_tpu.nn import quant as jax_quant
+    from convnet_tpu.serve import Predictor as JaxPredictor
+    from convnet_tpu_torch.ops.kernels import matmul_int8 as mi
+    from convnet_tpu_torch.serve import Predictor
+    for name in ("resnet", "mobilenet"):
+        jax_kw, port_kw, images = _int8_case(name)
+        for dtype in ("float32", "bf16"):
+            jp = JaxPredictor(**jax_kw, dtype=dtype)
+            pp = Predictor(**port_kw, dtype=dtype, device="cpu")
+            js, ps = np.array(jp.act_scales), np.array(pp.act_scales)
+            ref = jp.predict_logits(images)
+            top = np.abs(ref).max()
+            own = pp.predict_logits(images)
+            pp._replicas[0].state.scales = list(jp.act_scales)
+            with_jax = pp.predict_logits(images)
+            print(f"int8 {name} {dtype}: {len(ps)} scales (JAX {len(js)}), "
+                  f"largest relative difference "
+                  f"{np.abs(ps - js).max() / js.min():.3g}; logits against "
+                  f"JAX's, a share of the largest: own scales "
+                  f"{np.abs(own - ref).max() / top:.3g} (top-1 agreement "
+                  f"{np.mean(own.argmax(-1) == ref.argmax(-1)):.3g}), JAX's "
+                  f"scales {np.abs(with_jax - ref).max() / top:.3g} (top-1 "
+                  f"{np.mean(with_jax.argmax(-1) == ref.argmax(-1)):.3g})",
+                  flush=True)
+            # each quantized conv's input, as each package computed it
+            seen = {"jax": [], "port": []}
+            jax_conv, port_plain = jax_quant.conv1x1_int8, mi.matmul_int8_plain
+
+            def jax_record(x, w, s):
+                seen["jax"].append((np.asarray(x.astype(jnp.float32)), s))
+                return jax_conv(x, w, s)
+
+            def port_record(x, w, s, *args, **kw):
+                seen["port"].append(x.float().numpy())
+                return port_plain(x, w, s, *args, **kw)
+
+            jax_quant.conv1x1_int8, mi.matmul_int8_plain = (jax_record,
+                                                            port_record)
+            try:
+                with jax.disable_jit():
+                    jp.predict_logits(images)
+                pp.predict_logits(images)
+            finally:
+                jax_quant.conv1x1_int8, mi.matmul_int8_plain = (jax_conv,
+                                                                port_plain)
+            jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+            differ, total, worst = 0, 0, 0
+            for (xj, s), xp in zip(seen["jax"], seen["port"]):
+                qj = np.asarray(jax_quant.quantize_act(
+                    jnp.asarray(xj, jdt), s)[0], np.int32)
+                qp = mi.quantize_act(torch.from_numpy(xp).to(
+                    pp.policy.compute_dtype), s)[0].numpy().astype(np.int32)
+                qp = qp.reshape(qj.shape)
+                differ += int((qj != qp).sum())
+                total += qj.size
+                worst = max(worst, int(np.abs(qj - qp).max()))
+            print(f"  int8 activations that differ between the packages "
+                  f"(same scales, each package's own input): {differ} of "
+                  f"{total} ({differ / max(total, 1):.3g}), at most {worst} "
+                  f"apart, over {len(seen['port'])} convs", flush=True)
+    # the kernel's epilogue against the plain version's, in bf16
+    rng = np.random.default_rng(2)
+    worst_ulps, worst_rel = 0.0, 0.0
+    for m, k, n in ((3136, 64, 256), (784, 512, 128), (49, 2048, 512)):
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+            np.float32)).bfloat16()
+        w = torch.from_numpy((rng.standard_normal((n, k)) / k ** 0.5).astype(
+            np.float32))
+        scale = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+        shift = torch.from_numpy(rng.normal(0, 0.5, n).astype(np.float32))
+        s = float(x.float().abs().max()) / 127
+        plain = mi.matmul_int8_plain(x, w, s, scale, shift, "relu").float()
+        xq, eff = mi.quantize_act(x, s)
+        wq, sw = mi.quantize_weight_1x1(w)
+        fused = mi.int8_sums(xq, wq).float() * (
+            torch.tensor(eff, dtype=torch.float32) * sw)
+        fused = torch.clamp_min(fused * scale + shift, 0).bfloat16().float()
+        d = (fused - plain).abs()
+        # ulps where the output is at least 1 (where the shift cancels the
+        # product, the rounding of the pre-BN value is many ulps of a small
+        # output, and the share of 1 + |out| is the measure)
+        big = plain.abs() >= 1
+        ulp = 2.0 ** (torch.floor(torch.log2(plain.abs().clamp_min(1))) - 7)
+        ulps = float((d / ulp)[big].max())
+        rel = float((d / (1 + plain.abs())).max())
+        worst_ulps, worst_rel = max(worst_ulps, ulps), max(worst_rel, rel)
+        print(f"int8 epilogue, bf16, M {m} K {k} N {n}: fused against "
+              f"plain differ in {float((d > 0).float().mean()):.3g} of the "
+              f"outputs; at most {ulps:.3g} ulps where |out| >= 1, "
+              f"{rel:.3g} of 1 + |out| anywhere", flush=True)
+    print(f"int8 epilogue, bf16: at most {worst_ulps:.3g} ulps where "
+          f"|out| >= 1, {worst_rel:.3g} of 1 + |out|", flush=True)
+
+
 PARTS = {"sensitivity": sensitivity, "jax": jax_steps, "bf16_step": bf16_step,
          "bf16": bf16_blocks, "float64": float64, "oscillation": oscillation,
          "resnext": resnext, "mobilenet": mobilenet,
          "mobilenet_v2": mobilenet_v2, "trainer_features": trainer_features,
          "trainer_features_float64": trainer_features_float64,
          "mobilenet_v2_float64": mobilenet_v2_float64, "cifar_se": cifar_se,
-         "zoo": zoo}
+         "zoo": zoo, "int8": int8}
 
 if __name__ == "__main__":
     torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))

@@ -94,6 +94,18 @@ def test_the_zoo_modules_are_checked(module):
             assert top in allowed or top in sys.stdlib_module_names, name
 
 
+# the rest of serving's modules: int8, export, devices, the HTTP server
+SERVING = ("nn/quant.py", "ops/kernels/matmul_int8.py", "serve_http.py")
+
+
+@pytest.mark.parametrize("module", SERVING)
+def test_the_serving_modules_are_checked(module):
+    """As the zoo's modules: among the sources both tests above read, and
+    importing nothing but the standard library, numpy, torch and the
+    port."""
+    test_the_zoo_modules_are_checked(module)
+
+
 def _code_lines(path):
     """A C++ source's lines without its comments and blank lines."""
     out = []
