@@ -47,8 +47,11 @@ served from the artifact, ``devices="all"`` and the HTTP server.
    folded BN or none) of int8 ResNet-50 and MobileNet-V2 (read from their
    int8 predictors: batch 64 and 1), at Inception v3's 17x17 1x1s (K = 768)
    and at ragged shapes, bf16 and float32, its variant against its rule
-   (rows of whole 16-byte vectors: "vector"), timed beside the unfused
-   chain (quantize, ``torch._int_mm``, dequantize) and the bf16 fused 1x1.
+   (bf16 with K and N multiples of 8: the TMA + wgmma kernel "tma", which
+   every bf16 path shape at batch 64 must take; else rows of whole 16-byte
+   vectors: "vector") and its tile plan, timed beside the unfused chain
+   (quantize, ``torch._int_mm``, dequantize), ``torch._int_mm`` alone and
+   the bf16 fused 1x1.
    Kernel, plain version and the nearest library call (for MBConv the
    unfused chain of library calls) are timed with CUDA
    events, and the kernel alone (its launches replayed from a CUDA graph)
@@ -142,7 +145,8 @@ served from the artifact, ``devices="all"`` and the HTTP server.
    Predictor's; device batches formed, requests a second, p50 and p99; a
    JPEG the phase writes and the decoder it went through; /healthz; a 400
    for a wrongly sized npy; then a server over the exported artifact
-   answers 17 requests.
+   answers 17 requests. Every int8 launch of the phase is counted by the
+   kernel's variant and must be on the TMA kernel.
 5. summary: one ``{"kernels": [...]}`` line (each kernel's launches by path,
    the CLI's, the zoo's and the rest of serving's among them), the card
    line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -396,6 +400,8 @@ INT8_INCEPTION_K = 768
 # phase 4m: int8 against bf16 logits (tests/test_quant.py:74-89); HTTP:
 # single-image requests from client threads
 INT8_CORR, INT8_TOP1 = 0.99, 0.75
+# phase 4m's int8 launches by the kernel's variant, for the kernels line
+INT8_LAUNCHES_BY_VARIANT = {}
 HTTP_REQUESTS, HTTP_CLIENTS, HTTP_EXPORTED_REQUESTS = 128, 16, 17
 
 T0 = time.perf_counter()
@@ -2505,10 +2511,39 @@ def int8_bound(m, k, n, dname):
                                    else "operations")
 
 
-def int8_variant_expected(x):
-    """The int8 kernel's shape rule for a fresh, aligned x: rows of whole
-    16-byte vectors take the vector loads, others the scalar ones."""
-    return "vector" if x.shape[1] * x.element_size() % 16 == 0 else "scalar"
+def int8_variant_expected(x, n):
+    """The int8 kernel's shape rule for a fresh, aligned x and output: bf16
+    with K and N multiples of 8 takes the TMA + wgmma kernel; others take
+    the mma.sync kernel, its vector loads where rows of x are whole 16-byte
+    vectors, else its scalar ones."""
+    k = x.shape[1]
+    if str(x.dtype) == "torch.bfloat16" and k % 8 == 0 and n % 8 == 0:
+        return "tma"
+    return "vector" if k * x.element_size() % 16 == 0 else "scalar"
+
+
+def int8_host_costs(torch, mi, gen, calls=200):
+    """Host µs a call of the int8 wrapper, on the host clock around
+    ``calls`` back-to-back calls closed by a synchronise, at ResNet-50's
+    last 1x1 of a batch-1 forward (49x512x2048, a kernel shorter than the
+    host's work). ``mi`` is the wrapper's module, so
+    ``scripts/int8_host_cost.py`` times another tree's wrapper with it."""
+    x = torch.randn(49, 512, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(2048, 512, generator=gen, device="cuda") / 512 ** 0.5
+    scale = torch.rand(2048, generator=gen, device="cuda") + 0.5
+    shift = torch.randn(2048, generator=gen, device="cuda")
+    act_scale = float(x.float().abs().max()) / 127
+
+    def call():
+        return mi.matmul_int8(x, w, act_scale, scale, shift, "relu")
+
+    call()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        call()
+    torch.cuda.synchronize()
+    return {"wrapper_us": (time.perf_counter() - t) / calls * 1e6}
 
 
 def check_matmul_int8(torch, paths, inception):
@@ -2516,12 +2551,16 @@ def check_matmul_int8(torch, paths, inception):
     every (M, K, N, act, BN) of the int8 paths (``paths``, at batch 64 and
     1), at Inception v3's 17x17 1x1s at batch 64 (``inception``: (M, K, N,
     act)), and at INT8_RAGGED, in bf16 and float32, each with its variant
-    against the rule. In bf16 at batch 64 on the paths: the wrapper's time,
-    the kernel alone (from a CUDA graph), the plain version's, the unfused
-    chain's (a quantize pass, ``torch._int_mm``, a dequantize pass with the
-    BN and the activation) and the bf16 fused 1x1's at the same shape
-    (wrapper and kernel alone), beside the bound. Returns per-forward sums
-    by model and the largest error."""
+    against the rule and, on the TMA kernel, its tile plan (``mi.plan``);
+    every bf16 path shape at batch 64 must take the TMA kernel. In bf16 at
+    batch 64 on the paths: the wrapper's time, the kernel alone (from a CUDA
+    graph), the plain version's, the unfused chain's (a quantize pass,
+    ``torch._int_mm``, a dequantize pass with the BN and the activation),
+    ``torch._int_mm`` alone on the quantized x (the product's yardstick) and
+    the bf16 fused 1x1's at the same shape (wrapper and kernel alone),
+    beside the bound; then the wrapper's host time a call
+    (``int8_host_costs``). Returns per-forward sums by model, the largest
+    error, the variants seen and the host time."""
     from convnet_tpu_torch.ops.kernels import matmul_fused as mf
     from convnet_tpu_torch.ops.kernels import matmul_int8 as mi
     dtypes = {"bf16": torch.bfloat16, "float32": torch.float32}
@@ -2538,6 +2577,7 @@ def check_matmul_int8(torch, paths, inception):
               for m, k, n, act in INT8_RAGGED for bn in (True, False)]
     timed, failures, variants = {}, [], {}
     max_err = 0.0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for m, k, n, act, bn, batch, key in cases:
         for dname, dtype in dtypes.items():
             x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
@@ -2552,17 +2592,23 @@ def check_matmul_int8(torch, paths, inception):
             torch.cuda.synchronize()
             diff = (out.float() - ref.float()).abs()
             tol = INT8_TOL[dname]
-            kind = mi.variant(x)
+            kind = mi.variant(x, n)
+            want = int8_variant_expected(x, n)
+            if key is not None and batch == SERVE_BATCH and dname == "bf16" \
+                    and want != "tma":
+                want = "tma (every bf16 path shape at batch 64)"
             rec = {"check": "matmul_int8", "dtype": dname, "batch": batch,
                    "M": m, "K": k, "N": n, "act": act, "folded_bn": bn,
-                   "variant": kind,
+                   "variant": kind, "variant_expected": want,
+                   "plan": (mi.plan(m, k, n, sms)._asdict()
+                            if kind == "tma" else None),
                    "launches_per_forward": {
                        tag: shapes.get(key, 0)
                        for tag, shapes in paths.items()} if key else None,
                    "max_abs_err": diff.max().item(),
                    "bit_equal": bool(torch.equal(out, ref)), "tol": tol,
                    "ok": bool((diff <= tol * (1 + ref.float().abs())).all())
-                   and kind == int8_variant_expected(x)}
+                   and kind == want}
             if key is not None:
                 max_err = max(max_err, rec["max_abs_err"])
                 variants.setdefault(dname, set()).add(kind)
@@ -2592,6 +2638,10 @@ def check_matmul_int8(torch, paths, inception):
                     return mi._act(v, act).to(dtype)
 
                 rec["library_ms"] = cuda_ms(torch, chain)
+                q = torch.clamp(torch.round(x * inv), -127, 127).to(
+                    torch.int8)
+                rec["int_mm_ms"] = cuda_ms(torch,
+                                           lambda: torch._int_mm(q, wq_t))
                 wt = mf.kernel_weight(w.t(), dtype)
                 s1 = one if bn else torch.ones(n, device="cuda")
                 yf = torch.empty((m, n), dtype=dtype, device="cuda")
@@ -2608,8 +2658,8 @@ def check_matmul_int8(torch, paths, inception):
     if failures:
         raise RuntimeError(f"matmul_int8 disagrees with its plain version in "
                            f"{len(failures)} case(s)")
-    names = ("ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-             "fused_1x1_bf16_ms", "fused_1x1_bf16_kernel_ms")
+    names = ("ms", "kernel_ms", "plain_ms", "library_ms", "int_mm_ms",
+             "bound_ms", "fused_1x1_bf16_ms", "fused_1x1_bf16_kernel_ms")
     totals = {}
     for tag, shapes in paths.items():
         total = dict.fromkeys(names + ("bytes_bound_ms",), 0.0)
@@ -2625,9 +2675,13 @@ def check_matmul_int8(torch, paths, inception):
         log(f"{tag} int8 1x1s a forward: {total['kernel_ms']:.3f} ms alone, "
             f"{total['ms']:.3f} through the wrapper, bound "
             f"{total['bound_ms']:.3f}; the unfused chain "
-            f"{total['library_ms']:.3f}, the bf16 fused 1x1 "
+            f"{total['library_ms']:.3f}, torch._int_mm alone "
+            f"{total['int_mm_ms']:.3f}, the bf16 fused 1x1 "
             f"{total['fused_1x1_bf16_kernel_ms']:.3f} alone")
-    return totals, max_err, {d: sorted(v) for d, v in variants.items()}
+    host = int8_host_costs(torch, mi, gen)
+    emit({"int8_wrapper_host": host})
+    log(f"int8 wrapper: {host['wrapper_us']:.1f} us of host a call")
+    return totals, max_err, {d: sorted(v) for d, v in variants.items()}, host
 
 
 def _timed_requests(predictor, images, n):
@@ -2829,6 +2883,8 @@ def serve_rest(torch, card, k, images):
     just before it."""
     from convnet_tpu_torch.serve import Predictor, load_exported
     total = launches()
+    for name in k.mi.launches_by_variant:
+        k.mi.launches_by_variant[name] = 0
     bf16 = {}
     int8 = {}
     for tag in INT8_MODELS:
@@ -2896,6 +2952,14 @@ def serve_rest(torch, card, k, images):
     with tempfile.TemporaryDirectory() as tmp:
         total = add_counts(total, check_http(
             torch, card, k, bf16["resnet50"], exported["bf16"], images, tmp))
+    # every int8 launch of the phase ran in a counted run, on the TMA kernel
+    by_variant = dict(k.mi.launches_by_variant)
+    log(f"int8 launches of the phase by variant: {by_variant}")
+    if sum(by_variant.values()) != total["matmul_int8"] \
+            or by_variant["tma"] != total["matmul_int8"]:
+        raise RuntimeError(f"int8 launches by variant {by_variant}, counted "
+                           f"{total['matmul_int8']}, all expected on tma")
+    INT8_LAUNCHES_BY_VARIANT.update(by_variant)
     return total
 
 
@@ -3082,8 +3146,8 @@ def main():
     int8_path = int8_paths(torch, images)
     inception_17 = sorted(key for key in path["inception_v3"]
                           if key[1] == INT8_INCEPTION_K)
-    int8, int8_err, int8_variants = check_matmul_int8(torch, int8_path,
-                                                      inception_17)
+    int8, int8_err, int8_variants, int8_host = check_matmul_int8(
+        torch, int8_path, inception_17)
     log("matmul_int8 agrees with its plain version at every shape")
     seconds["kernels"] = time.perf_counter() - t
 
@@ -3239,12 +3303,14 @@ def main():
         "pass with the folded BN and the activation", int8_err,
         f"sum over the 33 launches of one batch-{SERVE_BATCH} bf16 int8 "
         f"ResNet-50 forward", variants_at_path_shapes=int8_variants,
+        launches_by_variant=INT8_LAUNCHES_BY_VARIANT,
+        int_mm_ms=i8["int_mm_ms"], wrapper_host=int8_host,
         fused_1x1_bf16_ms=i8["fused_1x1_bf16_ms"],
         fused_1x1_bf16_kernel_ms=i8["fused_1x1_bf16_kernel_ms"],
         per_forward_by_model={
             tag: {key: v[key] for key in (
-                "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                "fused_1x1_bf16_ms", "fused_1x1_bf16_kernel_ms")}
+                "ms", "kernel_ms", "plain_ms", "library_ms", "int_mm_ms",
+                "bound_ms", "fused_1x1_bf16_ms", "fused_1x1_bf16_kernel_ms")}
             for tag, v in int8.items()}))
     # no Pallas kernel: the reference's lax.dot between its quantize and
     # dequantize passes

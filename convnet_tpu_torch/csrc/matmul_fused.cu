@@ -48,16 +48,27 @@
 //   * float32: a plain 64x64 shared-memory tiled FMA kernel (no tensor cores,
 //     so the result is true float32 and not TF32).
 //
+// The mbarrier, TMA, descriptor and tensor-map helpers are csrc/hopper.cuh's,
+// shared with the int8 1x1 (csrc/matmul_int8.cu).
+//
 // Plain C interface, no PyTorch headers: built with nvcc into a shared
 // library and called through ctypes (convnet_tpu_torch/ops/kernels).
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
+
+using hopper::aligned16;
+using hopper::desc_kmajor;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::named_sync;
+using hopper::tma_load;
+using hopper::tma_store;
 
 constexpr int kActNone = 0;
 constexpr int kActRelu = 1;
@@ -265,69 +276,9 @@ constexpr int OFF_C = STAGES * STAGE_BYTES;
 constexpr int OFF_BAR = OFF_C + CONSUMERS * 2 * BOX_BYTES;
 constexpr int TMA_SMEM = OFF_BAR + 2 * STAGES * 8 + 1024;  // + alignment slack
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Returns once the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A K-major operand of 8-row groups of 128-byte swizzled rows (what TMA
-// writes with CU_TENSOR_MAP_SWIZZLE_128B): stride 1024 bytes between groups.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 // d[64] += A (64 x 16, desc a) * B (16 x 128 as 128 K-major rows, desc b);
@@ -381,7 +332,7 @@ __global__ void __launch_bounds__(TTHREADS, 2)
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, CONSUMERS * 4);  // lane 0 of each consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    hopper::mbar_init_fence();
   }
   __syncthreads();
 
@@ -427,14 +378,14 @@ __global__ void __launch_bounds__(TTHREADS, 2)
     for (int kt = 0; kt < ktiles; ++kt) {
       const uint32_t at = base + stage * STAGE_BYTES;
       mbar_wait(full + 8 * stage, phase);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-      const uint64_t da = desc_sw128(at + cw * 64 * TBK * 2);
-      const uint64_t db = desc_sw128(at + X_BYTES);
+      hopper::wgmma_fence();
+      const uint64_t da = desc_kmajor(at + cw * 64 * TBK * 2, 128);
+      const uint64_t db = desc_kmajor(at + X_BYTES, 128);
 #pragma unroll
       for (int kk = 0; kk < TBK / 16; ++kk)  // 32 bytes of K a step
         wgmma_m64n128k16(d, da + 2 * kk, db + 2 * kk, kt > 0 || kk > 0);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
       if (prev >= 0 && lane == 0) mbar_arrive(empty + 8 * prev);
       prev = stage;
       if (++stage == STAGES) {
@@ -442,7 +393,7 @@ __global__ void __launch_bounds__(TTHREADS, 2)
         phase ^= 1;
       }
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    hopper::wgmma_wait<0>();
     if (lane == 0) mbar_arrive(empty + 8 * prev);
 
     // Epilogue: d[4j + 2h + e] sits at row 16 wl + gq + 8h, column 8j +
@@ -452,8 +403,7 @@ __global__ void __launch_bounds__(TTHREADS, 2)
     // The last tile's store must have read the staging boxes. Box j / 8
     // holds columns 64 (j / 8) .. + 63 as 64 rows of 128 bytes whose
     // 16-byte chunks are swizzled by row % 8 (= gq).
-    if (threadIdx.x % 128 == 0)
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    if (threadIdx.x % 128 == 0) hopper::tma_store_wait_read();
     named_sync(1 + cw);
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -473,18 +423,17 @@ __global__ void __launch_bounds__(TTHREADS, 2)
                       apply_act(d[4 * j + 2 * h + 1] * s1 + b1, act));
       }
     }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    hopper::fence_proxy_async();
     named_sync(1 + cw);
     if (threadIdx.x % 128 == 0 && m0 + cw * 64 < M) {
       for (int box = 0; box < 2; ++box)
         if (n0 + 64 * box < N)
           tma_store(&tm_out, stage_c + box * BOX_BYTES, n0 + 64 * box,
                     m0 + cw * 64);
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      hopper::tma_store_commit();
     }
   }
-  if (threadIdx.x % 128 == 0)
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  if (threadIdx.x % 128 == 0) hopper::tma_store_wait();
 }
 
 // ------------------------------------------------------------- float32 path
@@ -558,10 +507,6 @@ __global__ void __launch_bounds__(FTHREADS)
 // 65,535 tiles (8,388,480 rows in bf16).
 unsigned tiles(int n, int tile) { return (unsigned)((n + tile - 1) / tile); }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 // The shape rule for the TMA kernel: TMA needs 16-byte aligned rows and
 // bases.
 bool tma_ok(int K, int N, int dtype, const void* x, const void* w,
@@ -570,42 +515,15 @@ bool tma_ok(int K, int N, int dtype, const void* x, const void* w,
          aligned16(w) && aligned16(out);
 }
 
-PFN_cuTensorMapEncodeTiled encode_fn() {
-  static const PFN_cuTensorMapEncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A row-major (rows, inner) bf16 matrix, read or written in boxes of
-// (box_rows, 64) with the 128-byte swizzle; out-of-range elements read as 0
-// and are not written.
-bool encode(PFN_cuTensorMapEncodeTiled fn, CUtensorMap* map, const void* p,
-            int rows, int inner, int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 int launch_tma(const void* x, const void* w, const float* scale,
                const float* shift, void* out, int M, int K, int N, int act,
                cudaStream_t s) {
-  const PFN_cuTensorMapEncodeTiled fn = encode_fn();
+  const PFN_cuTensorMapEncodeTiled fn = hopper::encode_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tm_x, tm_w, tm_out;
-  if (!encode(fn, &tm_x, x, M, K, TBM) || !encode(fn, &tm_w, w, N, K, TBN) ||
-      !encode(fn, &tm_out, out, M, N, 64))
+  if (!hopper::encode_bf16(fn, &tm_x, x, M, K, TBM) ||
+      !hopper::encode_bf16(fn, &tm_w, w, N, K, TBN) ||
+      !hopper::encode_bf16(fn, &tm_out, out, M, N, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   // per device: the SM count, once the shared-memory limit is set
   static int sms[64] = {};

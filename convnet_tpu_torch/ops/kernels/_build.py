@@ -5,10 +5,13 @@ header, so one ``nvcc`` call builds it in seconds. The host libraries of the
 input pipeline, ``csrc/dataio.cpp`` and ``csrc/jpegdec.cpp`` (libjpeg), are
 built the same way with ``g++`` (:func:`build_host`). A library goes into
 ``convnet_tpu_torch/_build/`` under a name that hashes the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused. The
-compiler writes to a temporary name that is renamed into place only when it
-succeeds: a killed build leaves neither a half-written library nor a lock.
-Nothing is written anywhere else.
+flags, so an edited source is rebuilt and an unchanged one is reused; the
+hash also covers the headers of ``csrc/`` that the source includes
+(``#include "name"``, followed through the headers' own includes), such as
+``csrc/hopper.cuh``, so an edited header rebuilds every library that uses
+it. The compiler writes to a temporary name that is renamed into place only
+when it succeeds: a killed build leaves neither a half-written library nor a
+lock. Nothing is written anywhere else.
 
 Building happens on the first call, never at import, so the CPU tests can
 import every module on a machine without ``nvcc``.
@@ -20,6 +23,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -43,8 +47,27 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(src: Path) -> list[Path]:
+    """``src`` and the files of its directory that it includes with quotes,
+    directly or through one another, each once, in the order found."""
+    found, todo = [src], [src]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_bytes()):
+            dep = src.parent / name.decode()
+            if dep.is_file() and dep not in found:
+                found.append(dep)
+                todo.append(dep)
+    return found
+
+
 def _output(name: str, src: Path, flags) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    digest = hashlib.sha256()
+    for path in _sources(src):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
