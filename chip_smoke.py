@@ -20,7 +20,9 @@ ResNet-50 from synthetic ImageNet and from JPEG files, ResNet-20 from a
 CIFAR-shaped one; and the rest of the model zoo at full width (Inception v3
 at 299² with its aux head first), served and trained; and the rest of
 serving: int8 serving of ResNet-50 and MobileNet-V2, ResNet-50 exported and
-served from the artifact, ``devices="all"`` and the HTTP server.
+served from the artifact, ``devices="all"`` and the HTTP server; and
+data-parallel training on a mesh of one rank over NCCL and of two processes
+sharing the card over gloo.
 
 1. card: name and power limit; the CUDA kernels are built with nvcc, one
    process per source, all started together, and the input pipeline's host
@@ -147,9 +149,27 @@ served from the artifact, ``devices="all"`` and the HTTP server.
    for a wrongly sized npy; then a server over the exported artifact
    answers 17 requests. Every int8 launch of the phase is counted by the
    kernel's variant and must be on the TMA kernel.
+   4n. data parallelism (``parallel/``, ``Trainer(mesh=)``). (a) one rank
+   over NCCL in this process: float32 steps of ResNet-50 (ghost and
+   sync-BN) and MobileNet-V2 (sync-BN) on the mesh bit-equal to the plain
+   Trainer's, cuDNN deterministic; ZeRO-1 (SGD, LARS) against the
+   replicated step and the bf16 all-reduce against the float32 one, within
+   the CPU tests' bounds; bf16 steps at batch 128 of ResNet-50 and
+   MobileNet-V2, plain and on the mesh (DDP; with sync-BN), timed and
+   counted (MobileNet-V2 under sync-BN: 13 Stats and 13 Raw launches a
+   step, their sums all-reduced between the two); the gradient bytes a
+   step. (b) two spawned processes sharing the card over gloo: ResNet-50
+   and MobileNet-V2 with sync-BN and ResNet-50 with ZeRO-1, 64 images a
+   rank, float32, each step against the one-rank step on the same 128 by
+   the card-step rule and the two ranks bit-equal: a correctness run, not
+   a scaling figure; and the training-mode forward of ResNet-50 and
+   MobileNet-V2 under sync-BN, each rank's logits and BN statistics
+   against the one-rank forward's within 1e-4, with per-replica BN as the
+   control that must fall outside it.
 5. summary: one ``{"kernels": [...]}`` line (each kernel's launches by path,
-   the CLI's, the zoo's and the rest of serving's among them), the card
-   line, and as the last line ``{"ok": true, "device": {...}}``.
+   the CLI's, the zoo's, the rest of serving's and the data-parallel
+   steps' among them), the card line, and as the last line ``{"ok": true,
+   "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; a hang dumps every
 thread's stack and exits after ``HANG_LIMIT_S``.
@@ -405,6 +425,42 @@ INT8_LAUNCHES_BY_VARIANT = {}
 HTTP_REQUESTS, HTTP_CLIENTS, HTTP_EXPORTED_REQUESTS = 128, 16, 17
 
 T0 = time.perf_counter()
+
+
+# phase 4n, data parallelism. (a) one rank over NCCL in this process: float32
+# steps (CHECK_BATCH, cuDNN deterministic) under the mesh bit-equal to the
+# plain Trainer's from the same state (DP_BITWISE: tag, TrainerConfig fields;
+# two steps, so DDP's rebuilt buckets take part); ZeRO-1 against the
+# replicated step and the bf16 all-reduce against the float32 one, within
+# the CPU tests' tolerances (tests/test_torch_port_data_parallel.py); then
+# DP_STEPS bf16 steps at TRAIN_BATCH each of ResNet-50 plain, on the mesh
+# and on the mesh with sync-BN (timed, counted), and MobileNet-V2 with
+# sync-BN (counted: a Stats and a Raw launch a fused block). (b) two
+# processes sharing the card over gloo: DP_WORLD2 (ResNet-50 and MobileNet-V2
+# (dropout 0) with sync-BN, ResNet-50 with sync-BN and ZeRO-1), float32,
+# DP_WORLD2_ROWS rows a rank, one step against the world-1 step on the same
+# 2·DP_WORLD2_ROWS images by STEP_TOL: a correctness run, not a scaling
+# figure. STEP_TOL cannot tell sync-BN from per-replica BN on such images, so
+# (b) also holds the forward: DP_FORWARD's float32 training-mode forward
+# (BN on the batch's moments), no step, on a rank's rows under sync-BN
+# against the world-1 forward of all the images, each rank's logits (max
+# |diff| over the max |logit| of its rows) and the BN statistics it leaves
+# (|diff| / (1 + |ref|)) within DP_FORWARD_TOL; the same forward under
+# per-replica BN is the control, which must fall outside it. Gloo takes every collective the port calls on CUDA tensors
+# (all_reduce, broadcast, reduce_scatter_tensor, all_gather_into_tensor;
+# torch 2.11 on the H100's machine).
+DP_BITWISE = (("resnet50", {}), ("resnet50", {"sync_bn": True}),
+              ("mobilenet_v2", {"sync_bn": True}))
+DP_ZERO_TOL = {"SGD": 1e-6, "LARS": 1e-5}
+DP_BF16_TOL = {"grad_norm": 5e-2, "rtol": 5e-2, "atol": 5e-3}
+DP_STEPS = 8
+DP_WORLD2_ROWS = 64
+DP_WORLD2 = {"resnet50_sync_bn": ("resnet50", {"sync_bn": True}),
+             "mobilenet_v2_sync_bn": ("mobilenet_v2", {"sync_bn": True}),
+             "resnet50_sync_bn_zero1": ("resnet50", {"sync_bn": True,
+                                                     "shard_opt_state": True})}
+DP_FORWARD = ("resnet50", "mobilenet_v2")
+DP_FORWARD_TOL = 1e-4
 
 
 def log(msg):
@@ -1260,10 +1316,12 @@ def expect_counts(what, got, want):
         raise RuntimeError(f"{what}: kernel launches {got}, expected {want}")
 
 
-def make_trainer(torch, tag, dtype, device, features=None, **overrides):
+def make_trainer(torch, tag, dtype, device, features=None, mesh=None,
+                 **overrides):
     """The port's Trainer for model ``tag`` with weights from SEED;
-    ``features`` are more ``TrainerConfig`` fields, ``overrides`` change the
-    model's config (its regime, for instance)."""
+    ``features`` are more ``TrainerConfig`` fields, ``mesh`` the
+    data-parallel mesh (phase 4n), ``overrides`` change the model's config
+    (its regime, for instance)."""
     from convnet_tpu_torch import models
     from convnet_tpu_torch.regimes.optim import OptimRegime
     from convnet_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -1271,7 +1329,7 @@ def make_trainer(torch, tag, dtype, device, features=None, **overrides):
     model = models.build(name, **config, **overrides)
     tr = Trainer(model, OptimRegime(model.regime), 1000,
                  TrainerConfig(dtype=dtype, **(features or {})),
-                 device=device, seed=SEED)
+                 device=device, seed=SEED, mesh=mesh)
     tr.initialize()
     return tr
 
@@ -1312,11 +1370,12 @@ def _check_batch(duplicates):
     return x, y
 
 
-def _one_step(torch, tag, where, x, y, features, overrides):
+def _one_step(torch, tag, where, x, y, features, overrides, mesh=None):
     """(loss, updates, BN statistics, initial weights) of one float32 step
     of model ``tag`` on ``where`` (None: the card), by the unwrapped
-    model's names."""
-    tr = make_trainer(torch, tag, "float32", where, features, **overrides)
+    model's names; ``mesh``: on that data-parallel mesh (phase 4n)."""
+    tr = make_trainer(torch, tag, "float32", where, features, mesh=mesh,
+                      **overrides)
     p0 = {_plain_name(n): q.detach().cpu().clone()
           for n, q in tr.model.named_parameters()}
     loss = float(tr.train_step(x, y)["loss"])
@@ -1358,36 +1417,47 @@ def check_step_against_cpu(torch, tag, features=None, duplicates=1,
     if p0_cpu.keys() != p0_gpu.keys() or any(
             not torch.equal(p0_cpu[n], p0_gpu[n]) for n in p0_cpu):
         raise RuntimeError("the card and the CPU drew different weights")
-    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
-    all_norm = sum(u_cpu[n].square().sum() for n in u_cpu).sqrt()
-    floor = STEP_TOL["tensor_floor"] * all_norm
-    per_tensor = {n: ((u_gpu[n] - u_cpu[n]).norm()
-                      / (u_cpu[n].norm() + floor)).item() for n in u_cpu}
-    total = (sum((u_gpu[n] - u_cpu[n]).square().sum() for n in u_cpu)
-             .sqrt() / all_norm).item()
-    # reported, not checked: the largest element error over its tensor's
-    # largest update
-    elem = max((u_gpu[n] - u_cpu[n]).abs().max().item()
-               / (u_cpu[n].abs().max().item() + 1e-30) for n in u_cpu)
-    worst = max(per_tensor, key=per_tensor.get)
-    stat_err = max(((s_gpu[n] - s_cpu[n]).abs()
-                    / (1 + s_cpu[n].abs())).max().item() for n in s_cpu)
     rec = {"check": "train_step_card_vs_cpu", "model": tag,
            "features": features or {}, "model_overrides": overrides,
            "card_model": card_model or {},
            "dtype": "float32", "batch": len(x), "loss_cpu": l_cpu,
-           "loss_card": l_gpu, "loss_rel_err": loss_err,
-           "update_norm_rel_err": total, "update_worst_tensor": worst,
-           "update_worst_tensor_norm_rel_err": per_tensor[worst],
-           "update_max_elem_err_over_max": elem,
-           "stats_max_err": stat_err, "tol": STEP_TOL}
+           "loss_card": l_gpu,
+           **step_errors((l_cpu, u_cpu, s_cpu), (l_gpu, u_gpu, s_gpu)),
+           "tol": STEP_TOL}
     emit(rec)
-    if (loss_err > STEP_TOL["loss"] or stat_err > STEP_TOL["stats"]
-            or total > STEP_TOL["update_norm"]
-            or per_tensor[worst] > STEP_TOL["update_norm_per_tensor"]):
+    if not rec["within_tol"]:
         raise RuntimeError(f"{tag}: the float32 step on the card disagrees "
                            f"with the CPU's")
     return s_gpu
+
+
+def step_errors(ref, got):
+    """The card-step rule: a step (loss, {name: update}, {name: BN
+    statistic}) against a reference step from the same weights; the errors
+    and whether they are within STEP_TOL."""
+    (l_ref, u_ref, s_ref), (l_got, u_got, s_got) = ref, got
+    loss_err = abs(l_got - l_ref) / abs(l_ref)
+    all_norm = sum(u_ref[n].square().sum() for n in u_ref).sqrt()
+    floor = STEP_TOL["tensor_floor"] * all_norm
+    per_tensor = {n: ((u_got[n] - u_ref[n]).norm()
+                      / (u_ref[n].norm() + floor)).item() for n in u_ref}
+    total = (sum((u_got[n] - u_ref[n]).square().sum() for n in u_ref)
+             .sqrt() / all_norm).item()
+    # reported, not checked: the largest element error over its tensor's
+    # largest update
+    elem = max((u_got[n] - u_ref[n]).abs().max().item()
+               / (u_ref[n].abs().max().item() + 1e-30) for n in u_ref)
+    worst = max(per_tensor, key=per_tensor.get)
+    stat_err = max(((s_got[n] - s_ref[n]).abs()
+                    / (1 + s_ref[n].abs())).max().item() for n in s_ref)
+    return {"loss_rel_err": loss_err, "update_norm_rel_err": total,
+            "update_worst_tensor": worst,
+            "update_worst_tensor_norm_rel_err": per_tensor[worst],
+            "update_max_elem_err_over_max": elem, "stats_max_err": stat_err,
+            "within_tol": not (
+                loss_err > STEP_TOL["loss"] or stat_err > STEP_TOL["stats"]
+                or total > STEP_TOL["update_norm"]
+                or per_tensor[worst] > STEP_TOL["update_norm_per_tensor"])}
 
 
 # kernel name → share of the step, first match wins
@@ -3048,6 +3118,316 @@ def serve(torch, card, k, tag, predictor, images):
     return serve_counts
 
 
+def _dp_bitwise(torch, mesh):
+    """Phase 4n (a): float32 steps on the one-rank NCCL mesh bit-equal to
+    the plain Trainer's."""
+    x, y = _check_batch(1)
+    for tag, features in DP_BITWISE:
+        states = []
+        for m in (None, mesh):
+            tr = make_trainer(torch, tag, "float32", None, features, mesh=m)
+            losses = [float(tr.train_step(x, y)["loss"]) for _ in range(2)]
+            states.append((losses, [t.detach().cpu().clone()
+                                    for t in _trainer_tensors(tr)]))
+            del tr
+        (l_plain, plain), (l_mesh, on_mesh) = states
+        differ = [i for i, (a, b) in enumerate(zip(plain, on_mesh))
+                  if not torch.equal(a, b)]
+        emit({"check": "data_parallel_world1_bitwise", "model": tag,
+              "features": features, "batch": len(x), "steps": 2,
+              "losses_plain": l_plain, "losses_mesh": l_mesh,
+              "tensors": len(plain), "tensors_not_bit_equal": differ})
+        if differ or l_plain != l_mesh:
+            raise RuntimeError(f"{tag} {features}: the one-rank mesh's "
+                               f"float32 steps differ from the plain "
+                               f"Trainer's in {differ[:5]}")
+
+
+def _dp_tolerances(torch, mesh):
+    """Phase 4n (a): ZeRO-1 (SGD; LARS under ResNet-50's large_lars regime)
+    against the replicated step, and the bf16 all-reduce against the float32
+    one, one float32 step each on the mesh."""
+    x, y = _check_batch(1)
+
+    def step(features, **overrides):
+        tr = make_trainer(torch, "resnet50", "float32", None, features,
+                          mesh=mesh, **overrides)
+        m = tr.train_step(x, y)
+        params = {n: p.detach().cpu().clone()
+                  for n, p in tr.model.named_parameters()}
+        return float(m["grad_norm"]), params
+
+    def worst(a, b, rtol, atol):
+        return max(((a[n] - b[n]).abs() / (atol + rtol * b[n].abs()))
+                   .max().item() for n in b)
+
+    recs = []
+    for name, overrides in (("SGD", {}),
+                            ("LARS", {"regime": "large_lars",
+                                      "batch_size": LARGE_BATCH})):
+        g_rep, rep = step({}, **overrides)
+        g_zero, zero = step({"shard_opt_state": True}, **overrides)
+        tol = DP_ZERO_TOL[name]
+        recs.append({"check": "zero1_vs_replicated", "optimizer": name,
+                     "grad_norm_rel_err": abs(g_zero - g_rep) / g_rep,
+                     "params_err_over_tol": worst(zero, rep, tol, tol),
+                     "tol": {"params": tol, "grad_norm": 1e-5}})
+    g32, p32 = step({})
+    g16, p16 = step({"allreduce_dtype": "bf16"})
+    recs.append({"check": "bf16_allreduce_vs_float32",
+                 "grad_norm_rel_err": abs(g16 - g32) / g32,
+                 "params_err_over_tol": worst(p16, p32, DP_BF16_TOL["rtol"],
+                                              DP_BF16_TOL["atol"]),
+                 "params_changed": any(not torch.equal(p16[n], p32[n])
+                                       for n in p32),
+                 "tol": DP_BF16_TOL})
+    for rec in recs:
+        emit({**rec, "model": "resnet50", "dtype": "float32",
+              "batch": len(x), "world": 1})
+        if (rec["params_err_over_tol"] > 1
+                or rec["grad_norm_rel_err"] > rec["tol"]["grad_norm"]):
+            raise RuntimeError(f"phase 4n: {rec['check']} out of tolerance")
+    if not recs[-1]["params_changed"]:
+        raise RuntimeError("phase 4n: the bf16 all-reduce changed nothing")
+
+
+def _dp_timed(torch, card, k, mesh):
+    """Phase 4n (a): bf16 steps at TRAIN_BATCH of ResNet-50 (plain, on the
+    mesh, on the mesh with sync-BN) and MobileNet-V2 (plain, on the mesh
+    with sync-BN), a model's variants stepped in turn so that the host's
+    drift falls on all alike; each timed, each step's launches counted.
+    Returns the phase's launch counts."""
+    rng = np.random.default_rng(SEED + 5)
+    x = torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH, 224, 224, 3)).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 1000, TRAIN_BATCH)).cuda()
+    p50 = {}
+    reset_counts(k)
+    for tag, variants in (
+            ("resnet50", (("plain", None), ("ddp", {}),
+                          ("ddp_sync_bn", {"sync_bn": True}))),
+            ("mobilenet_v2", (("plain", None),
+                              ("ddp_sync_bn", {"sync_bn": True})))):
+        trainers = {v: make_trainer(torch, tag, "bf16", None, f,
+                                    mesh=None if f is None else mesh)
+                    for v, f in variants}
+        runs = {v: {"host": [], "device": [], "losses": []}
+                for v in trainers}
+        for i in range(DP_STEPS):
+            for v, tr in trainers.items():
+                before = counts(k)
+                m, host_s = step_timed(torch, tr, x, y)
+                runs[v]["host"].append(host_s)
+                runs[v]["device"].append(m["device_ms"])
+                runs[v]["losses"].append(m["loss"])
+                got = {n: c - before[n] for n, c in counts(k).items()}
+                if got != MODELS[tag][3]:
+                    raise RuntimeError(f"phase 4n {tag} {v} step {i}: "
+                                       f"launches {got}, expected "
+                                       f"{MODELS[tag][3]}")
+        if tag == "resnet50":
+            params = sum(p.numel() for p in trainers["plain"].model
+                         .parameters())
+        for v, r in runs.items():
+            if not all(np.isfinite(r["losses"])):
+                raise RuntimeError(f"phase 4n {tag} {v}: {r['losses']}")
+            p50[(tag, v)] = statistics.median(r["host"][1:]) * 1e3
+            emit({"train": f"{tag}_bf16_224_{v}", "card": card,
+                  "batch": TRAIN_BATCH, "world": 1,
+                  "backend": None if v == "plain" else "nccl",
+                  "steps": DP_STEPS, "losses": r["losses"],
+                  "step_p50_ms": p50[(tag, v)],
+                  "device_step_p50_ms": statistics.median(r["device"][1:]),
+                  "launches_per_step": MODELS[tag][3],
+                  "note": "host clock around train_step (ends with a read "
+                          "of the loss), p50 over steps 2-8, the variants "
+                          "stepped in turn; device: CUDA events around the "
+                          "step"})
+        del trainers
+        torch.cuda.empty_cache()
+    emit({"data_parallel": "bf16_224_batch_128", "card": card,
+          "step_p50_over_plain": {
+              f"{tag}_{variant}": p50[(tag, variant)] / p50[(tag, "plain")]
+              for tag, variant in p50 if variant != "plain"},
+          "parameters": params,
+          "allreduce_bytes_per_step": {"float32": 4 * params,
+                                       "bf16": 2 * params},
+          "note": "ResNet-50's gradient bytes DDP all-reduces a step (at "
+                  "world 1 NCCL moves none of them)"})
+    return counts(k)
+
+
+def _dp_rank(rank, init, folder):
+    """Phase 4n (b): one of two processes sharing the card over gloo; its
+    half of the batch, one float32 step of each case of DP_WORLD2; the
+    step's loss, updates and BN statistics saved for the parent."""
+    import torch
+    from convnet_tpu_torch.parallel import init_distributed, make_mesh
+    init_distributed(init, device_type="cuda", local_rank=rank,
+                     local_world=2, backend="gloo")
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mesh = make_mesh(2, "cuda")
+        x, y = _dp_world2_batch()
+        rows = slice(rank * DP_WORLD2_ROWS, (rank + 1) * DP_WORLD2_ROWS)
+        out = {}
+        for case, (tag, features) in DP_WORLD2.items():
+            t = time.perf_counter()
+            out[case] = _one_step(torch, tag, None, x[rows], y[rows],
+                                  features, _dp_overrides(tag), mesh)[:3]
+            out[case] += (time.perf_counter() - t,)
+        out["forward"] = {f"{tag} {sync}": _dp_forward(torch, tag, x[rows],
+                                                       mesh, sync)
+                          for tag in DP_FORWARD for sync in (True, False)}
+        torch.save(out, os.path.join(folder, f"rank{rank}.pt"))
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def _dp_forward(torch, tag, x, mesh=None, sync_bn=False):
+    """Phase 4n (b): model ``tag``'s float32 forward of ``x`` in training
+    mode (BN on the batch's moments: over the mesh's ranks under
+    ``sync_bn``, else this process's), without a step; its logits and the
+    BN statistics it leaves, by the unwrapped model's names."""
+    tr = make_trainer(torch, tag, "float32", None,
+                      {"sync_bn": True} if sync_bn else None, mesh=mesh,
+                      **_dp_overrides(tag))
+    tr.model.train()
+    with torch.no_grad():
+        logits = tr.model(torch.from_numpy(x).cuda()).float().cpu()
+    stats = {_plain_name(n): b.detach().cpu()
+             for n, b in tr.model.named_buffers()}
+    return logits, stats
+
+
+def _dp_forward_errors(ref, got, rows):
+    """A rank's forward (logits, BN statistics) against the world-1 one:
+    the max |logit diff| over the max |logit| of the rank's rows, and the
+    statistics' max |diff| / (1 + |ref|)."""
+    (l_ref, s_ref), (l_got, s_got) = ref, got
+    logits = ((l_got - l_ref[rows]).abs().max()
+              / l_ref[rows].abs().max()).item()
+    stats = max(((s_got[n] - s_ref[n]).abs() / (1 + s_ref[n].abs()))
+                .max().item() for n in s_ref)
+    return {"logits": logits, "stats": stats}
+
+
+def _dp_overrides(tag):
+    return {"dropout": 0.0} if tag == "mobilenet_v2" else {}
+
+
+def _dp_world2_batch():
+    rng = np.random.default_rng(SEED + 6)
+    return (rng.standard_normal((2 * DP_WORLD2_ROWS, 224, 224, 3))
+            .astype(np.float32),
+            rng.integers(0, 1000, 2 * DP_WORLD2_ROWS))
+
+
+def _dp_world2(torch, card, tmp):
+    """Phase 4n (b): the world-1 steps here, then two spawned ranks sharing
+    the card over gloo, each step held to the world-1 one by STEP_TOL and
+    the two ranks to each other bit for bit."""
+    import multiprocessing
+    x, y = _dp_world2_batch()
+    ref = {}
+    for tag in {tag for tag, _ in DP_WORLD2.values()}:
+        t = time.perf_counter()
+        ref[tag] = _one_step(torch, tag, None, x, y, None,
+                             _dp_overrides(tag))[:3]
+        ref[tag] += (time.perf_counter() - t,)
+    forward_ref = {tag: _dp_forward(torch, tag, x) for tag in DP_FORWARD}
+    ctx = multiprocessing.get_context("spawn")
+    init = "file://" + os.path.join(tmp, "rendezvous2")
+    t = time.perf_counter()
+    procs = [ctx.Process(target=_dp_rank, args=(r, init, tmp))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for r, p in enumerate(procs):
+        if p.is_alive():
+            p.terminate()
+            p.join()
+        if p.exitcode != 0:
+            raise RuntimeError(f"phase 4n: world-2 rank {r} exit code "
+                               f"{p.exitcode}")
+    wall = time.perf_counter() - t
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    for case, (tag, features) in DP_WORLD2.items():
+        a, b = ranks[0][case], ranks[1][case]
+        apart = [n for i in (1, 2) for n in a[i]
+                 if not torch.equal(a[i][n], b[i][n])]
+        errs = step_errors(ref[tag][:3], a[:3])
+        emit({"check": "data_parallel_world2_vs_world1", "model": tag,
+              "card": card, "backend": "gloo", "world": 2,
+              "rows_per_rank": DP_WORLD2_ROWS, "dtype": "float32",
+              "features": features,
+              "loss_world1": ref[tag][0], "loss_world2": a[0],
+              **errs, "tol": STEP_TOL, "ranks_not_bit_equal": apart,
+              "build_and_step_s": {"world1": ref[tag][3],
+                                   "world2_ranks": [a[3], b[3]]},
+              "spawn_to_join_s": wall,
+              "note": "two processes sharing one card: a correctness run, "
+                      "not a scaling figure; build_and_step_s: host clock "
+                      "around a trainer's build and its first float32 step "
+                      "(closed by a read of the loss)"})
+        if apart or not errs["within_tol"]:
+            raise RuntimeError(f"phase 4n {case}: the world-2 step over gloo "
+                               f"disagrees ({apart[:3]}, {errs})")
+    for tag in DP_FORWARD:
+        errs = {sync: [_dp_forward_errors(
+            forward_ref[tag], ranks[r]["forward"][f"{tag} {sync}"],
+            slice(r * DP_WORLD2_ROWS, (r + 1) * DP_WORLD2_ROWS))
+            for r in range(2)] for sync in (True, False)}
+        emit({"check": "data_parallel_world2_forward_vs_world1",
+              "model": tag, "card": card, "backend": "gloo", "world": 2,
+              "rows_per_rank": DP_WORLD2_ROWS, "dtype": "float32",
+              "sync_bn_errors": errs[True],
+              "per_replica_bn_control_errors": errs[False],
+              "tol": DP_FORWARD_TOL,
+              "note": "training-mode forward, no step; errors by rank"})
+        worst = max(max(e.values()) for e in errs[True])
+        if worst > DP_FORWARD_TOL:
+            raise RuntimeError(f"phase 4n {tag}: the world-2 sync-BN "
+                               f"forward disagrees with the world-1 one "
+                               f"({errs[True]})")
+        if min(max(e.values()) for e in errs[False]) <= DP_FORWARD_TOL:
+            raise RuntimeError(f"phase 4n {tag}: the per-replica control "
+                               f"is within DP_FORWARD_TOL ({errs[False]}): "
+                               f"the check cannot tell the two apart")
+
+
+def data_parallel(torch, card, k):
+    """Phase 4n. Returns the launch counts of (a)'s mesh steps."""
+    import torch.distributed as dist
+    from convnet_tpu_torch.parallel import init_distributed, make_mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("file://" + os.path.join(tmp, "rendezvous"),
+                         device_type="cuda")
+        try:
+            mesh = make_mesh(1, "cuda")
+            if dist.get_backend(mesh.get_group("data")) != "nccl":
+                raise RuntimeError("phase 4n: the card's mesh is not NCCL")
+            # float32 steps compared across trainers: cuDNN deterministic,
+            # as phase 4j
+            from torch.backends import cudnn
+            saved = cudnn.deterministic, cudnn.benchmark
+            cudnn.deterministic, cudnn.benchmark = True, False
+            try:
+                _dp_bitwise(torch, mesh)
+                _dp_tolerances(torch, mesh)
+            finally:
+                cudnn.deterministic, cudnn.benchmark = saved
+            counted = _dp_timed(torch, card, k, mesh)
+        finally:
+            dist.destroy_process_group()
+        _dp_world2(torch, card, tmp)
+    return counted
+
+
 def main():
     faulthandler.dump_traceback_later(HANG_LIMIT_S, exit=True)
     import types
@@ -3209,6 +3589,11 @@ def main():
     t = time.perf_counter()
     path_counts["serve_rest"] = serve_rest(torch, card, k, images)
     seconds["serve_rest"] = time.perf_counter() - t
+
+    # -- 4n. data parallelism: one rank over NCCL, two over gloo
+    t = time.perf_counter()
+    path_counts["data_parallel"] = data_parallel(torch, card, k)
+    seconds["data_parallel"] = time.perf_counter() - t
     seconds["total"] = time.perf_counter() - t0
     emit({"seconds_by_phase": seconds})
 

@@ -13,14 +13,35 @@ config restored from a checkpoint's meta) with its embedded regime →
 ``Trainer`` holds the weights, BN statistics and optimizer state wherever
 the JAX CLI threads ``params, state, opt_state``.
 
-Flags of what the port does not have yet raise ``NotImplementedError``
-when given a non-default value: multi-device and multi-host training
-(``--num-devices`` > 1, ``--sync-bn``, ``--shard-opt-state``, ``--spatial``
-> 1, ``--allreduce-dtype``, ``--dist-*``; ROADMAP.md §1 item 10) and
-float16 compute (``--dtype float16``/``fp16``; item 11). ``--impl``,
-``--flat-optim`` and ``--compile-cache`` are XLA knobs: parsed, logged, and
-without effect here (on the card every kernel of the path runs by its
-shape rule).
+Data parallelism as in the JAX CLI: ``--num-devices`` (default: every
+local card; 1 with ``--device cpu``) is the number of local ranks. At one
+rank the run stays in this process, as on one device; above, one process
+a card is spawned (``torch.multiprocessing``, each on its card, NCCL; with
+``--device cpu`` that many CPU processes over gloo). Multi-host:
+``--dist-init tcp://host:port`` (the rendezvous), ``--dist-rank`` (this
+host's index) and ``--dist-world-size`` (the number of hosts); every host
+runs the command with its own ``--dist-rank``, and the global rank is
+``host · local ranks + local rank`` (``parallel/mesh.py``). ``-b`` is the
+batch of one host (the JAX package's process), split over its local ranks:
+on one host the global batch; each rank loads ``b / local ranks`` samples
+a step from its share of the epoch's order (``perm[rank::world]``, the JAX
+multi-host layout with one device a process): the union of a step's samples
+is the global batch a single-host JAX mesh takes, but under per-replica BN
+the samples that share a BN are those of the multi-host grouping, not the
+single-host mesh's contiguous split. Validation scores every sample once
+whatever the world: the evaluation loaders pad the shorter shares with
+rows labelled -100 (``data/loader.py``). ``--sync-bn``,
+``--shard-opt-state`` and ``--allreduce-dtype`` reach ``TrainerConfig``;
+at one rank, as in the JAX CLI, there is no mesh and they change nothing.
+Only rank 0 logs to the run's files and writes ``results`` and the
+checkpoints; every rank takes part in the collectives of saving,
+validation and BN calibration.
+
+Flags of what the port does not have yet raise ``NotImplementedError``:
+``--spatial`` > 1 (ROADMAP.md §1 item 10) and float16 compute (``--dtype
+float16``/``fp16``; item 11). ``--impl``, ``--flat-optim`` and
+``--compile-cache`` are XLA knobs: parsed, logged, and without effect here
+(on the card every kernel of the path runs by its shape rule).
 """
 
 from __future__ import annotations
@@ -29,6 +50,8 @@ import argparse
 import ast
 import logging
 import os
+import shutil
+import tempfile
 from datetime import datetime
 
 import torch
@@ -97,22 +120,25 @@ def build_parser():
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to train: the CUDA card (default; raises "
                         "without one) or the CPU")
-    # parallelism (not ported yet: non-default values raise)
+    # parallelism
     p.add_argument("--num-devices", type=int, default=None,
-                   help="data-parallel degree (one card only so far)")
+                   help="local data-parallel ranks (default: all local "
+                        "cards; 1 with --device cpu)")
     p.add_argument("--sync-bn", action="store_true",
-                   help="cross-replica BatchNorm statistics (not ported)")
+                   help="cross-replica BatchNorm statistics")
     p.add_argument("--shard-opt-state", action="store_true",
-                   help="ZeRO-1 optimizer-state sharding (not ported)")
+                   help="ZeRO-1: shard optimizer moments over the data "
+                        "axis (reduce-scatter grads, all-gather params)")
     p.add_argument("--spatial", type=int, default=1,
                    help="spatial-partitioning degree (not ported)")
     p.add_argument("--allreduce-dtype", default=None,
                    choices=["bf16", "fp16"],
-                   help="gradient all-reduce dtype (not ported)")
+                   help="cast gradients for the all-reduce (grads are "
+                        "re-cast after)")
     p.add_argument("--flat-optim", action="store_true",
                    help="an XLA knob of the JAX package; no effect here")
     p.add_argument("--dist-init", default=None,
-                   help="multi-host coordinator address (not ported)")
+                   help="multi-host rendezvous address tcp://host:port")
     p.add_argument("--dist-rank", type=int, default=0)
     p.add_argument("--dist-world-size", type=int, default=1)
     p.add_argument("--impl", default="xla", choices=["xla", "pallas"],
@@ -152,19 +178,10 @@ def build_parser():
 
 def _refuse_unported(args):
     """NotImplementedError for a flag of what the port lacks."""
-    multi = {"--num-devices": (args.num_devices or 1) > 1,
-             "--sync-bn": args.sync_bn,
-             "--shard-opt-state": args.shard_opt_state,
-             "--spatial": args.spatial > 1,
-             "--allreduce-dtype": args.allreduce_dtype is not None,
-             "--dist-init": args.dist_init is not None,
-             "--dist-rank": args.dist_rank != 0,
-             "--dist-world-size": args.dist_world_size != 1}
-    given = [flag for flag, on in multi.items() if on]
-    if given:
+    if args.spatial > 1:
         raise NotImplementedError(
-            f"{', '.join(given)}: multi-device training is not ported yet "
-            f"(ROADMAP.md §1 item 10); the port trains on one card")
+            f"--spatial {args.spatial}: spatial partitioning is not ported "
+            f"yet (ROADMAP.md §1 item 10); the port is data-parallel only")
     if str(args.dtype).lower() in ("float16", "fp16"):
         raise NotImplementedError(
             f"--dtype {args.dtype}: float16 compute is not ported yet "
@@ -178,10 +195,86 @@ def _resolve_device(name):
     return torch.device(name)
 
 
+def _local_ranks(args):
+    """The number of local ranks: ``--num-devices``, by default every local
+    card (one CPU process with ``--device cpu``). More than the visible
+    cards raises."""
+    if args.device == "cpu":
+        n = args.num_devices or 1
+    else:
+        visible = torch.cuda.device_count()
+        n = args.num_devices or visible
+        if n > visible:
+            raise ValueError(f"--num-devices {n}: {visible} visible cards")
+    if n < 1:
+        raise ValueError(f"--num-devices {n}")
+    return n
+
+
 def main(argv=None):
+    """Parses ``argv`` and trains (or evaluates); returns the results,
+    which every rank shares."""
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+    device = _resolve_device(args.device)
+    local = _local_ranks(args)
+    if not 0 <= args.dist_rank < args.dist_world_size:
+        raise ValueError(f"--dist-rank {args.dist_rank} of "
+                         f"--dist-world-size {args.dist_world_size}")
+    if args.dist_world_size > 1 and not args.dist_init:
+        raise ValueError("--dist-world-size > 1 needs --dist-init")
+    if local == 1 and not args.dist_init:
+        return _train(args, device, None, 0)
+    init, tmp = args.dist_init, None
+    if init is None:
+        # one host: a rendezvous file in a directory of its own
+        tmp = tempfile.mkdtemp(prefix="convnet_tpu_torch_dist_")
+        init = f"file://{os.path.join(tmp, 'rendezvous')}"
+    try:
+        if local == 1:
+            return _run_rank(0, args, init, 1, None)
+        import torch.multiprocessing as mp
+        results = mp.get_context("spawn").SimpleQueue()
+        mp.start_processes(_run_rank, args=(args, init, local, results),
+                           nprocs=local, join=True, start_method="spawn")
+        return results.get()
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _run_rank(local_rank, args, init, local, results):
+    """One rank: joins the process group, trains on the mesh (none at a
+    world of one, as in the JAX CLI), leaves the group; the host's local
+    rank 0 puts its results on ``results``, which the host's launcher
+    reads."""
+    import torch.distributed as dist
+
+    from convnet_tpu_torch.parallel import init_distributed, make_mesh
+    if args.device == "cpu" and local > 1:
+        # the local ranks share the threads one process would take
+        torch.set_num_threads(max(1, torch.get_num_threads() // local))
+    rank, world = init_distributed(
+        init, device_type=args.device, host=args.dist_rank,
+        hosts=args.dist_world_size, local_rank=local_rank, local_world=local)
+    try:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if args.device == "cuda" else torch.device("cpu"))
+        mesh = make_mesh(world, args.device) if world > 1 else None
+        res = _train(args, device, mesh, rank)
+        if local_rank == 0 and results is not None:
+            results.put(res)
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, device, mesh, rank):
+    """The run on this rank: ``mesh`` None for one device."""
     from convnet_tpu_torch import models
     from convnet_tpu_torch.core.module import param_count
     from convnet_tpu_torch.data.data_regime import DataRegime
+    from convnet_tpu_torch.parallel import local_batch_size
     from convnet_tpu_torch.regimes.optim import OptimRegime
     from convnet_tpu_torch.regimes.regime import (rescale_regime_lr,
                                                   replace_regime_key)
@@ -192,16 +285,16 @@ def main(argv=None):
                                              setup_logging)
     from convnet_tpu_torch.utils.misc import set_global_seeds
 
-    args = build_parser().parse_args(argv)
-    _refuse_unported(args)
-    device = _resolve_device(args.device)
-
+    world = 1 if mesh is None else mesh.size()
+    main_rank = rank == 0
     save_name = args.save or datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     save_path = os.path.join(args.results_dir, save_name)
-    os.makedirs(save_path, exist_ok=True)
-    setup_logging(os.path.join(save_path, "log.txt"), resume=bool(args.resume))
-    export_args_namespace(args, os.path.join(save_path, "args.json"))
-    log.info("saving to %s", save_path)
+    if main_rank:
+        os.makedirs(save_path, exist_ok=True)
+        setup_logging(os.path.join(save_path, "log.txt"),
+                      resume=bool(args.resume))
+        export_args_namespace(args, os.path.join(save_path, "args.json"))
+        log.info("saving to %s", save_path)
     for flag, value, default in (("--impl", args.impl, "xla"),
                                  ("--flat-optim", args.flat_optim, False),
                                  ("--compile-cache", args.compile_cache, "")):
@@ -272,22 +365,24 @@ def main(argv=None):
                                        args.dataset else 1000)
 
     # ---- trainer ----------------------------------------------------
-    log.info("device: %s%s", device,
+    log.info("device: %s%s, %d rank(s)%s", device,
              f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else "")
+             if device.type == "cuda" else "", world,
+             f" over {torch.distributed.get_backend()}" if mesh else "")
     cfg = TrainerConfig(
         dtype=args.dtype, mixup_alpha=args.mixup, cutmix_alpha=args.cutmix,
         label_smoothing=args.label_smoothing, grad_clip=args.grad_clip,
         loss_scale=args.loss_scale, chunk_batch=args.chunk_batch,
         duplicates=args.duplicates, adapt_grad_norm=args.adapt_grad_norm,
         model_ema=args.model_ema, average_output=args.duplicates > 1,
-        print_freq=args.print_freq)
+        sync_bn=args.sync_bn, shard_opt_state=args.shard_opt_state,
+        allreduce_dtype=args.allreduce_dtype, print_freq=args.print_freq)
     trainer = Trainer(model, optim, num_classes, cfg, device=device,
-                      seed=args.seed)
+                      seed=args.seed, mesh=mesh)
     if args.model_ema > 0:
         log.info("model EMA enabled (decay %.4g): validation and "
                  "model_best use the averaged weights", args.model_ema)
-    if args.tensorwatch:
+    if args.tensorwatch and main_rank:
         trainer.set_watcher(os.path.join(save_path, "watch.jsonl"))
 
     if args.import_torch:
@@ -327,9 +422,16 @@ def main(argv=None):
                  f", batch {batch_idx}" if batch_idx else "")
 
     # ---- data regimes (the model may author its own) ------------------
+    def rank_batch(b):
+        # -b is one host's batch: the mesh's is that of every host
+        if mesh is None:
+            return b
+        return local_batch_size(b * args.dist_world_size, mesh)
+
     defaults = {
         "name": args.dataset, "split": "train",
-        "batch_size": args.batch_size, "num_workers": args.workers,
+        "batch_size": rank_batch(args.batch_size),
+        "num_workers": args.workers,
         "data_dir": args.datasets_dir, "duplicates": args.duplicates,
         "autoaugment": args.autoaugment,
         "cutout": {"length": 8} if args.cutout else None,
@@ -345,15 +447,18 @@ def main(argv=None):
         defaults["dataset_kwargs"] = {"channels": in_channels,
                                       "image_size": model.input_size}
     train_data = DataRegime(getattr(model, "data_regime", None),
-                            defaults=defaults, seed=args.seed, device=device)
+                            defaults=defaults, seed=args.seed, device=device,
+                            process_index=rank, process_count=world)
     eval_bs = args.eval_batch_size if args.eval_batch_size > 0 else args.batch_size
     eval_defaults = {**defaults, "split": "val", "augment": False,
-                     "batch_size": eval_bs, "multicrop": args.multicrop,
+                     "batch_size": rank_batch(eval_bs),
+                     "multicrop": args.multicrop,
                      "duplicates":
                      args.duplicates if cfg.average_output else 1}
     val_data = DataRegime(getattr(model, "data_eval_regime", None),
                           defaults=eval_defaults, seed=args.seed,
-                          device=device)
+                          device=device, process_index=rank,
+                          process_count=world)
 
     # ---- BN folding / evaluate-only ---------------------------------
     if args.absorb_bn:
@@ -370,8 +475,9 @@ def main(argv=None):
         return results
 
     # ---- the epoch loop ---------------------------------------------
-    results = ResultsLog(save_path, title=f"{args.model} on {args.dataset}")
-    if args.resume:
+    results = (ResultsLog(save_path, title=f"{args.model} on {args.dataset}")
+               if main_rank else None)
+    if args.resume and main_rank:
         # a resumed run appends to the previous curves, without the rows of
         # epochs it trains again
         results.load()
@@ -386,17 +492,19 @@ def main(argv=None):
     for epoch in range(start_epoch, args.epochs):
         train_data.set_epoch(epoch, trainer.training_steps)
         profiler = None
-        if args.profile and epoch == start_epoch:
+        if args.profile and epoch == start_epoch and main_rank:
             profiler = _start_profile()
         step_hook = None
         if args.save_freq:
             def step_hook(tr, batch_idx, _epoch=epoch):
                 if batch_idx % args.save_freq:
                     return
-                ckpt_io.save_checkpoint(
-                    tr.checkpoint_dict(**meta(epoch=_epoch,
-                                              batch_idx=batch_idx)),
-                    False, save_path, background=True)
+                # a collective on a mesh: every rank gathers, rank 0 writes
+                ckpt = tr.checkpoint_dict(**meta(epoch=_epoch,
+                                                 batch_idx=batch_idx))
+                if main_rank:
+                    ckpt_io.save_checkpoint(ckpt, False, save_path,
+                                            background=True)
         train_res = trainer.train_epoch(
             train_data.get_loader(), epoch,
             start_batch=start_batch if epoch == start_epoch else 0,
@@ -411,9 +519,11 @@ def main(argv=None):
 
         is_best = val_res["prec1"] > best_prec1
         best_prec1 = max(val_res["prec1"], best_prec1)
-        ckpt_io.save_checkpoint(
-            trainer.checkpoint_dict(**meta(epoch=epoch)), is_best, save_path,
-            save_all=args.save_all, background=True)
+        ckpt = trainer.checkpoint_dict(**meta(epoch=epoch))
+        if not main_rank:
+            continue
+        ckpt_io.save_checkpoint(ckpt, is_best, save_path,
+                                save_all=args.save_all, background=True)
 
         log.info("epoch %d: train loss %.4f prec1 %.2f | val loss %.4f "
                  "prec1 %.2f prec5 %.2f | best %.2f | step p50 %.1f ms",

@@ -19,6 +19,14 @@
   ``duplicates`` packs K host-transform draws per sample contiguously;
   ``process_index``/``process_count`` shard the epoch's permutation.
 
+Sharding (``perm[process_index::process_count]``): in training
+(``drop_last``) every process takes ``n // process_count // batch_size``
+batches of its share. In evaluation no row is dropped: every share is
+lengthened to ``ceil(n / process_count)`` rows by repeating its first rows,
+whose labels are -100 (rows that count nowhere in ``Trainer.validate``), so
+that the processes take the same number of batches and their real rows are
+the whole set. At one process nothing changes.
+
 The device transform draws from a ``torch.Generator`` on the batch's device,
 seeded from (seed, epoch) when an epoch's iteration starts, and every batch
 draws the same amount: a resume that skips the first K batches by iterating
@@ -67,6 +75,32 @@ def _host_seed(seed, epoch, i, d):
     return hash((seed, epoch, int(i), d)) & 0x7FFFFFFF
 
 
+def _num_batches(n, process_count, batch_size, drop_last):
+    if drop_last:
+        return n // process_count // batch_size
+    share = -(-n // process_count)
+    return -(-share // batch_size)
+
+
+def _process_shard(perm, process_index, process_count, drop_last):
+    """This process's share of the epoch's order and the number of its real
+    rows; without ``drop_last``, padded to ``ceil(n / process_count)``."""
+    shard = perm[process_index::process_count]
+    real = len(shard)
+    if not drop_last:
+        shard = np.resize(shard, -(-len(perm) // process_count))
+    return shard, real
+
+
+def _label_padding(ys, b, rows, batch_size, real, duplicates):
+    """Batch ``b``'s labels (``rows`` samples, each ``duplicates`` times),
+    -100 for the samples past the share's ``real`` ones."""
+    fake = min(rows, max(0, b * batch_size + rows - real))
+    if fake:
+        ys[(rows - fake) * duplicates:] = -100
+    return ys
+
+
 class ArrayBatcher:
     """Card-resident batching for ArrayDataset-style datasets. ``device``:
     where the data lives and the transform runs; ``None`` is the card."""
@@ -94,13 +128,14 @@ class ArrayBatcher:
         self.epoch = epoch
 
     def __len__(self):
-        n = len(self.dataset) // self.process_count
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        return _num_batches(len(self.dataset), self.process_count,
+                            self.batch_size, self.drop_last)
 
     def __iter__(self) -> Iterator:
         n = len(self.dataset)
         perm = _epoch_permutation(n, self.epoch, self.seed, self.shuffle)
-        shard = perm[self.process_index::self.process_count]
+        shard, real = _process_shard(perm, self.process_index,
+                                     self.process_count, self.drop_last)
         dup = self.transform.duplicates
         gen = epoch_generator(self.device, self.seed, self.epoch)
         # the epoch's order goes to the device once: a copy a batch from
@@ -108,10 +143,12 @@ class ArrayBatcher:
         shard = torch.from_numpy(np.asarray(shard, np.int64)).to(self.device)
         for b in range(len(self)):
             idx = shard[b * self.batch_size:(b + 1) * self.batch_size]
+            rows = len(idx)
             if dup > 1:
                 idx = idx.repeat_interleave(dup)
             x = self.transform.device(gen, self._data.index_select(0, idx))
-            yield x, self._labels.index_select(0, idx)
+            yield x, _label_padding(self._labels.index_select(0, idx), b,
+                                    rows, self.batch_size, real, dup)
 
 
 class _StagingRing:
@@ -187,8 +224,8 @@ class DataLoader:
         self.epoch = epoch
 
     def __len__(self):
-        n = len(self.dataset) // self.process_count
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        return _num_batches(len(self.dataset), self.process_count,
+                            self.batch_size, self.drop_last)
 
     def _load_sample(self, args):
         idx, sample_seed, dup = args
@@ -239,7 +276,8 @@ class DataLoader:
     def __iter__(self) -> Iterator:
         n = len(self.dataset)
         perm = _epoch_permutation(n, self.epoch, self.seed, self.shuffle)
-        shard = perm[self.process_index::self.process_count]
+        shard, real = _process_shard(perm, self.process_index,
+                                     self.process_count, self.drop_last)
         num_batches = len(self)
         dup = self.transform.duplicates
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -356,10 +394,13 @@ class DataLoader:
                     if stop.is_set():
                         return
                     idx = shard[b * self.batch_size:(b + 1) * self.batch_size]
+                    rows = len(idx)
                     if native_kind is not None:
                         fn = (native_batch if native_kind == "tar"
                               else native_files_batch)
-                        put(out_q, fn(b, idx))
+                        xs, ys = fn(b, idx)
+                        put(out_q, (xs, _label_padding(
+                            ys, b, rows, self.batch_size, real, dup)))
                         continue
                     if blob_mode:
                         item = blob_q.get()
@@ -380,7 +421,8 @@ class DataLoader:
                         results = list(pool.map(self._load_sample, tasks))
                     xs = np.stack([r[0] for r in results])
                     ys = np.asarray([r[1] for r in results], np.int32)
-                    put(out_q, (xs, ys))
+                    put(out_q, (xs, _label_padding(
+                        ys, b, rows, self.batch_size, real, dup)))
                 put(out_q, None)
             except Exception as e:  # surface loader errors to the consumer
                 put(out_q, e)

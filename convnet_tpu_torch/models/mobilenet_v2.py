@@ -11,7 +11,9 @@ fused MBConv (``ops/kernels/mbconv.py``), 13 of the 17 at width 1.0. In eval
 that is ``mbconv_infer`` with the three BNs folded (once per version of each
 BN's parameters and statistics, as ``ConvBN`` folds), one Full kernel a block;
 in training ``mbconv_train``, a Stats and a Raw kernel a block, whose
-backward recomputes the block layer by layer. The 4 stride-2 blocks run
+backward recomputes the block layer by layer; under sync-BN (the BNs'
+``group``) the kernels' sums are all-reduced between the two launches and
+after the second. The 4 stride-2 blocks run
 layer by layer: in eval the expand and the project on the fused 1x1 kernel
 (with the last 320→1280 conv, 9 launches a forward), the depthwise conv on
 its kernel in both modes. Under int8 serving no block is fused: the
@@ -27,6 +29,7 @@ from convnet_tpu_torch.models.resnet import (ConvBN, folded_bn,
                                              weight_decay_config)
 from convnet_tpu_torch.nn import Dropout, GlobalAvgPool, Linear
 from convnet_tpu_torch.ops.kernels import mbconv
+from convnet_tpu_torch.parallel.mesh import group_size
 from convnet_tpu_torch.regimes import schedules
 
 
@@ -78,10 +81,12 @@ class InvertedResidual(nn.Module):
         g1 = b1 = None
         if ex is not None:
             g1, b1 = ex.bn.weight, ex.bn.bias
+        # sync-BN: the three BNs share the group parallel.set_bn_group set
+        group = dw.bn.group
         y, stats = mbconv.mbconv_train(
             x, we, g1, b1, wd, dw.bn.weight, dw.bn.bias, wp, pj.bn.weight,
-            pj.bn.bias, eps=dw.bn.eps, residual=self.use_res)
-        n = x.numel() // x.shape[-1]
+            pj.bn.bias, eps=dw.bn.eps, residual=self.use_res, group=group)
+        n = x.numel() // x.shape[-1] * group_size(group)
         for cb, moments in zip((ex, dw, pj), stats):
             if cb is not None:
                 cb.bn.track(*moments, n)

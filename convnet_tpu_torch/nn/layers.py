@@ -127,7 +127,14 @@ class BatchNorm2d(nn.Module):
     the batch statistics and updates the buffers in place (torch momentum).
     ``zero_init`` sets γ to 0 instead of 1 (a zero-init residual branch);
     ``reset_parameters`` keeps it. With ``update_stats`` off (while
-    ``CheckpointModule`` recomputes a block) the buffers stay as they are.
+    ``CheckpointModule`` recomputes a block) the buffers stay as they are;
+    the recompute still takes the same cross-replica moments, so every rank
+    issues the same collectives in the same order.
+
+    ``group`` (None: per-replica statistics) is a process group whose ranks'
+    batch moments are averaged (sync-BN, set on every BN of a model by
+    ``parallel.set_bn_group``); the running variance's correction then
+    counts the values of every rank.
     """
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1,
@@ -138,6 +145,7 @@ class BatchNorm2d(nn.Module):
         self.momentum = momentum
         self.zero_init = zero_init
         self.update_stats = True
+        self.group = None
         self.weight = nn.Parameter(torch.empty(num_features))
         self.bias = nn.Parameter(torch.empty(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -159,8 +167,9 @@ class BatchNorm2d(nn.Module):
     @torch.no_grad()
     def track(self, mean, var, n):
         """Updates the running statistics from a batch's mean and biased
-        variance over ``n`` values a channel, as :meth:`forward` does in
-        training (for a fused block that computes the moments itself)."""
+        variance over ``n`` values a channel (every rank's under sync-BN),
+        as :meth:`forward` does in training (for a fused block that computes
+        the moments itself)."""
         if not self.update_stats:
             return
         new_mean, new_var = running_update(self.running_mean,
@@ -173,7 +182,8 @@ class BatchNorm2d(nn.Module):
         if self.training:
             y, mean, var = ops.batch_norm_train(
                 x, self.weight, self.bias, self.running_mean,
-                self.running_var, momentum=self.momentum, eps=self.eps)
+                self.running_var, momentum=self.momentum, eps=self.eps,
+                group=self.group)
             if self.update_stats:
                 with torch.no_grad():
                     self.running_mean.copy_(mean)

@@ -46,11 +46,13 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from convnet_tpu_torch import ops
 from convnet_tpu_torch.ops.kernels import _build, _prepared
 from convnet_tpu_torch.ops.kernels.depthwise_conv import depthwise_conv2d
+from convnet_tpu_torch.parallel.mesh import group_mean, group_size
 
 ACTS = {"none": 0, "relu": 1, "relu6": 2}
 MODES = {"full": 0, "stats": 1, "raw": 2}
@@ -578,27 +580,42 @@ def _gram_stats(x, we):
 
 def mbconv_train_forward(x, we, g1, b1, wd, g2, b2, wpj, g3, b3, *,
                          eps=1e-5, residual=True, act_mid="relu6",
-                         act_out="none"):
+                         act_out="none", group=None):
     """Training-mode fused forward (``mbconv.py:386``). Returns (out,
     stats), stats = ((mean1, var1) or None without an expand stage,
     (mean2, var2), (mean3, var3)): the biased batch moments of the three
     BNs, for the running-statistics updates. Not differentiable: see
-    :func:`mbconv_train`."""
+    :func:`mbconv_train`.
+
+    ``group`` (sync-BN, the reference's ``axis_name``): the expand stage's
+    Gram moments are averaged over the group, the Stats kernel's sums are
+    summed over it before the Raw kernel is launched, and the Raw kernel's
+    sums before the final fold, each over n · world values."""
     n = x.numel() // x.shape[-1]
     ch = wd.shape[-1]
     if we is not None:
         mean1, var1 = _gram_stats(x, we)
+        if group is not None:
+            mean1, ex2 = group_mean(torch.stack([mean1,
+                                                 var1 + mean1 * mean1]),
+                                    group).unbind()
+            var1 = torch.clamp_min(ex2 - mean1 * mean1, 0.0)
         s1, t1 = _fold(g1, b1, mean1, var1, eps)
         stats1 = (mean1, var1)
     else:
         s1 = t1 = stats1 = None
     wd9 = _wd9(wd)
-    mean2, var2 = _finalize(mbconv_stats(x, we, s1, t1, wd9,
-                                         act_mid=act_mid), n)
+    sums2 = mbconv_stats(x, we, s1, t1, wd9, act_mid=act_mid)
+    if group is not None:
+        dist.all_reduce(sums2, group=group)
+    n2 = n * group_size(group)
+    mean2, var2 = _finalize(sums2, n2)
     s2, t2 = _fold(g2, b2, mean2, var2, eps)
     h3, sums3 = mbconv_raw(x, we, s1, t1, wd9, s2, t2, wpj.reshape(ch, -1),
                            act_mid=act_mid)
-    mean3, var3 = _finalize(sums3, n)
+    if group is not None:
+        dist.all_reduce(sums3, group=group)
+    mean3, var3 = _finalize(sums3, n2)
     s3, t3 = _fold(g3, b3, mean3, var3, eps)
     y = h3.float() * s3 + t3
     if residual:
@@ -609,11 +626,13 @@ def mbconv_train_forward(x, we, g1, b1, wd, g2, b2, wpj, g3, b3, *,
 
 # ------------------------------------------- the unfused composition, VJP
 
-def _bn_train_apply(v, gamma, beta, eps):
+def _bn_train_apply(v, gamma, beta, eps, group=None):
     v32 = v.float()
     dims = tuple(range(v.dim() - 1))
     mean = v32.mean(dim=dims)
     ex2 = (v32 * v32).mean(dim=dims)
+    if group is not None:
+        mean, ex2 = group_mean(torch.stack([mean, ex2]), group).unbind()
     var = torch.clamp_min(ex2 - mean * mean, 0.0)
     s = gamma.float() * torch.rsqrt(var + eps)
     return (v32 - mean) * s + beta.float()
@@ -629,22 +648,25 @@ def _grad_act(v, kind):
 
 
 def _unfused(x, we, g1, b1, wd, g2, b2, wpj, g3, b3, *, eps, residual,
-             act_mid, act_out):
+             act_mid, act_out, group=None):
     """The block layer by layer with batch-statistics BN (``mbconv.py:468``),
     the rounding points of the reference: each product in float32 from
     operands in x's type, each BN in float32, the activations cast to x's
     type. The depthwise conv runs ``depthwise_conv2d`` in float32 on the
-    x-typed values, which is the reference's ``preferred_element_type``."""
+    x-typed values, which is the reference's ``preferred_element_type``.
+    ``group``: each BN's moments averaged over it (sync-BN)."""
     ch = wd.shape[-1]
     v = x
     if we is not None:
         h1 = x.float() @ we.to(x.dtype).float()
-        v = _grad_act(_bn_train_apply(h1, g1, b1, eps), act_mid).to(x.dtype)
+        v = _grad_act(_bn_train_apply(h1, g1, b1, eps, group),
+                      act_mid).to(x.dtype)
     w_dw = wd.reshape(9, ch).t().reshape(ch, 1, 3, 3).to(x.dtype).float()
     h2 = depthwise_conv2d(v.float(), w_dw, 1, 1)
-    u2 = _grad_act(_bn_train_apply(h2, g2, b2, eps), act_mid).to(x.dtype)
+    u2 = _grad_act(_bn_train_apply(h2, g2, b2, eps, group),
+                   act_mid).to(x.dtype)
     h3 = u2.float() @ wpj.reshape(ch, -1).to(x.dtype).float()
-    y = _bn_train_apply(h3, g3, b3, eps)
+    y = _bn_train_apply(h3, g3, b3, eps, group)
     if residual:
         y = y + x.float()
     return _grad_act(y, act_out).to(x.dtype)
@@ -677,15 +699,17 @@ class _MBConvTrain(torch.autograd.Function):
 
 
 def mbconv_train(x, we, g1, b1, wd, g2, b2, wpj, g3, b3, *, eps=1e-5,
-                 residual=True, act_mid="relu6", act_out="none"):
+                 residual=True, act_mid="relu6", act_out="none", group=None):
     """Differentiable fused training block (``mbconv.py:531``): the forward
     runs the kernels, the backward recomputes through :func:`_unfused`
     (exact gradients of the block's definition). Without an expand stage
     pass ``we = g1 = b1 = None``. Returns (out, stats) as
-    :func:`mbconv_train_forward`; the statistics carry no gradient."""
+    :func:`mbconv_train_forward`; the statistics carry no gradient.
+    ``group``: sync-BN over that process group, in the forward's kernels'
+    sums and in the recompute's moments alike."""
     stats = []
     conf = dict(eps=float(eps), residual=bool(residual), act_mid=act_mid,
-                act_out=act_out)
+                act_out=act_out, group=group)
     y = _MBConvTrain.apply(conf, stats, x, we, g1, b1, wd, g2, b2, wpj, g3,
                            b3)
     return y, tuple(stats)

@@ -32,8 +32,33 @@ A run saves and resumes through ``checkpoint_dict`` and ``load_checkpoint``
 ``train_epoch(start_batch=, step_hook=)`` resumes inside an epoch, and
 ``set_watcher`` streams one JSON line a step.
 
-Not ported yet (ROADMAP.md): meshes, sync-BN, ZeRO, the low-precision
-all-reduce and the flattened optimizer update.
+Data parallelism (``mesh=``, a ``parallel.make_mesh``): one process a card,
+each rank passing its own part of the batch to every call, the rest as the
+JAX package's step on a ``'data'`` mesh does it, in its order. The model is
+wrapped in ``DistributedDataParallel`` (``broadcast_buffers=False``, so each
+rank keeps its BN statistics; a comm hook that sums the gradients and then
+divides by the world, in ``allreduce_dtype`` where set: the rounding of
+``lax.pmean`` on the cast gradients); chunks but the last run under
+``no_sync``. After the backward the BN running statistics are averaged over
+the ranks and the loss too, the correct counts summed (one all-reduce);
+``adapt_grad_norm``'s sub-gradient, which DDP does not see, is averaged by
+hand. ``sync_bn`` sets the mesh's group on every BatchNorm
+(``parallel.set_bn_group``: cross-replica moments, in the fused MobileNet-V2
+blocks too); without it each rank normalises with its own batch (ghost BN).
+The gradients are averaged before they are divided by the chunks and the
+loss scale (the JAX step divides first: the same for powers of two).
+``shard_opt_state`` (ZeRO-1, ``parallel/zero.py``) runs the bare model and
+reduce-scatters the gradients instead; it raises with ``adapt_grad_norm``,
+``model_ema`` and BoundedWeightNorm, and turns itself off without a mesh, as
+in the JAX package. Parameters and BN statistics are broadcast from rank 0
+at :meth:`initialize`. Rank r > 0 seeds its dropout generator and its mixup
+sampler from (seed, r), as the JAX step folds the replica's index into its
+key; rank 0 keeps ``seed``. ``validate`` and ``calibrate_bn`` sum and
+average over the ranks; ``checkpoint_dict`` is then a collective (every
+rank calls it; rank 0 writes).
+
+Not ported yet (ROADMAP.md): spatial partitioning and the flattened
+optimizer update.
 """
 
 from __future__ import annotations
@@ -45,15 +70,20 @@ import inspect
 import json
 import logging
 import time
+from contextlib import nullcontext
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from convnet_tpu_torch.core.device import resolve_device
 from convnet_tpu_torch.core.dtypes import get_policy
 from convnet_tpu_torch.core.module import init_parameters
 from convnet_tpu_torch.nn import BatchNorm2d, Dropout
+from convnet_tpu_torch.parallel import zero
+from convnet_tpu_torch.parallel.mesh import (DATA_AXIS, all_mean_, replicate,
+                                             restore_bn_groups, set_bn_group)
 from convnet_tpu_torch.regimes.optim import (OptimRegime, clip_by_global_norm,
                                              global_norm, optimizer_slots,
                                              optimizer_step)
@@ -70,6 +100,11 @@ from convnet_tpu_torch.utils.param_filter import wd_mask
 log = logging.getLogger(__name__)
 
 
+def slot_is_flat(v):
+    """A ZeRO-1 slot: one 1-D tensor (a rank's slice)."""
+    return isinstance(v, torch.Tensor) and v.dim() == 1
+
+
 @dataclasses.dataclass
 class TrainerConfig:
     dtype: str = "float32"          # dtype policy name: compute dtype
@@ -84,33 +119,86 @@ class TrainerConfig:
     adapt_grad_norm: Optional[int] = None  # measure the scale every n steps
     average_output: bool = False    # validate: mean logits over duplicates
     model_ema: float = 0.0          # decay of the weights' EMA; 0: off
+    sync_bn: bool = False           # cross-replica BN statistics (a mesh)
+    shard_opt_state: bool = False   # ZeRO-1: moments sharded over 'data'
+    allreduce_dtype: Optional[str] = None  # cast gradients for the all-reduce
+
+
+# --allreduce-dtype names (the JAX package maps "half" to bfloat16 too)
+_ALLREDUCE_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+                     "half": torch.bfloat16, "fp16": torch.float16,
+                     "float16": torch.float16, "float32": None}
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s streams: ``seed`` itself on rank 0."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
+
+
+def _mean_hook(state, bucket):
+    """DDP comm hook: the bucket's sum over the group, then divided by the
+    group's size, in ``dtype`` where given (cast, sum, divide, cast back)."""
+    group, dtype = state
+    world = dist.get_world_size(group)
+    buf = bucket.buffer()
+    t = buf if dtype is None else buf.to(dtype)
+    fut = dist.all_reduce(t, group=group, async_op=True).get_future()
+
+    def done(f):
+        total = f.value()[0].div_(world)
+        return total if dtype is None else buf.copy_(total)
+
+    return fut.then(done)
 
 
 class Trainer:
     def __init__(self, model, optim_regime: OptimRegime, num_classes: int,
                  config: Optional[TrainerConfig] = None, device=None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
         """``device``: where the model trains; ``None`` is the CUDA card.
         ``seed`` seeds the weights :meth:`initialize` draws, the generator
         of the model's ``Dropout`` layers and the host-side draws of mixup
-        and cutmix."""
+        and cutmix. ``mesh``: the data-parallel mesh
+        (``parallel.make_mesh``) this rank trains on, None for one
+        device."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        self.cfg = config or TrainerConfig()
+        self.mesh = mesh
+        self.group = None if mesh is None else mesh.get_group(DATA_AXIS)
+        self.world = 1 if mesh is None else dist.get_world_size(self.group)
+        self.rank = 0 if mesh is None else dist.get_rank(self.group)
+        if self.cfg.shard_opt_state:
+            if mesh is None:
+                self.cfg = dataclasses.replace(self.cfg,
+                                               shard_opt_state=False)
+            elif self.cfg.adapt_grad_norm or self.cfg.model_ema > 0:
+                raise ValueError("shard_opt_state is incompatible with "
+                                 "adapt_grad_norm and model_ema")
+        if self.cfg.allreduce_dtype not in (None, *_ALLREDUCE_DTYPES):
+            raise ValueError(f"allreduce_dtype {self.cfg.allreduce_dtype!r}: "
+                             f"one of {sorted(_ALLREDUCE_DTYPES)}")
+        if self.cfg.sync_bn and mesh is not None:
+            set_bn_group(self.model, self.group)
+        own_seed = rank_seed(seed, self.rank)
         self.dropout_generator = torch.Generator(
-            device=self.device).manual_seed(seed)
+            device=self.device).manual_seed(own_seed)
         for m in self.model.modules():
             if isinstance(m, Dropout):
                 m.generator = self.dropout_generator
         self.optim = optim_regime
         self.num_classes = num_classes
-        self.cfg = config or TrainerConfig()
         self.policy = get_policy(self.cfg.dtype)
         self.seed = seed
         self.criterion = CrossEntropyLoss(smooth_eps=self.cfg.label_smoothing)
-        self.mix = (MixUp(self.cfg.mixup_alpha, num_classes, seed)
+        self.mix = (MixUp(self.cfg.mixup_alpha, num_classes, own_seed)
                     if self.cfg.mixup_alpha > 0 else
-                    CutMix(self.cfg.cutmix_alpha, num_classes, seed)
+                    CutMix(self.cfg.cutmix_alpha, num_classes, own_seed)
                     if self.cfg.cutmix_alpha > 0 else None)
+        self._ddp = None
+        self._zero = None
         self.epoch = 0
         self.training_steps = 0
         self.opt_state = None
@@ -140,23 +228,71 @@ class Trainer:
         ``state_dict`` (for instance ``utils.from_jax.from_jax_params``);
         makes the weight-decay mask and the optimizer state (with the
         gradient-norm scale under ``adapt_grad_norm`` and float32 copies of
-        the weights under ``model_ema``)."""
+        the weights under ``model_ema``). On a mesh the weights and BN
+        statistics are then broadcast from rank 0, and the model is wrapped
+        in DDP, or the ZeRO-1 layout made (each rank's slice of the flat
+        moments)."""
         if state_dict is None:
             init_parameters(self.model,
                             torch.Generator().manual_seed(self.seed))
         else:
             self.model.load_state_dict(state_dict)
+        if self.mesh is not None:
+            replicate(self.model, self.group)
         named = list(self.model.named_parameters())
         mask = wd_mask(self.model)
         self._params = [p for _, p in named]
         self._mask = [mask[name] for name, _ in named]
+        if self.cfg.shard_opt_state:
+            self.opt_state = self._init_zero()
+            return self.opt_state
         self.opt_state = self.optim.init_state(self._params, self._mask)
         if self._adapts_grad_norm:
             self.opt_state["agn_scale"] = torch.ones((), device=self.device)
         if self.cfg.model_ema > 0:
             self.opt_state["ema"] = [p.detach().float().clone()
                                      for p in self._params]
+        if self.mesh is not None and self._ddp is None:
+            from torch.nn.parallel import DistributedDataParallel
+            # no buffer broadcast in the forward (each rank keeps its BN
+            # statistics); torch >= 2.13 names that forward_sync_buffers
+            no_sync_buffers = (
+                {"forward_sync_buffers": False} if "forward_sync_buffers"
+                in inspect.signature(DistributedDataParallel).parameters
+                else {"broadcast_buffers": False})
+            self._ddp = DistributedDataParallel(
+                self.model, device_ids=(
+                    [torch.cuda.current_device() if self.device.index is None
+                     else self.device.index]
+                    if self.device.type == "cuda" else None),
+                process_group=self.group, init_sync=False, **no_sync_buffers)
+            self._ddp.register_comm_hook(
+                (self.group, _ALLREDUCE_DTYPES.get(self.cfg.allreduce_dtype)),
+                _mean_hook)
         return self.opt_state
+
+    def _init_zero(self):
+        """The ZeRO-1 state: {"step", each slot as this rank's slice of the
+        flat padded vector}, and the layout's constants."""
+        if self.optim.uses_bounded_norm:
+            raise ValueError("shard_opt_state is incompatible with "
+                             "BoundedWeightNorm")
+        params, n = self._params, self.world
+        padded = zero.flat_size(params, n)
+        per = padded // n
+        self._zero = {
+            "padded": padded, "size": sum(p.numel() for p in params),
+            "mask01": zero.shard_slice(
+                zero.flat_mask01(params, self._mask, n), self.group),
+            "seg": zero.shard_slice(zero.leaf_segment_ids(params, n),
+                                    self.group),
+            "leaf_mask": zero.leaf_mask01(params, self._mask),
+            "segments": zero.slice_segments(params, n, self.rank),
+            "jax_index": zero.jax_order_index(self.model)}
+        state = self.optim.init_state(
+            [torch.zeros(per, device=self.device)])
+        return {k: v[0] if isinstance(v, list) else v
+                for k, v in state.items()}
 
     @property
     def _adapts_grad_norm(self):
@@ -195,26 +331,29 @@ class Trainer:
         y = torch.as_tensor(y).to(self.device, non_blocking=True)
         return self.policy.cast_to_compute(x), y
 
-    def _loss(self, x, y):
-        """The training forward of x and its loss against y (class labels
-        or soft targets): the main logits' loss plus, for a model with
-        auxiliary heads, each head's ``weight · criterion(logits, y)``.
-        Returns (loss, main logits)."""
+    def _loss(self, x, y, net=None):
+        """The training forward of x through ``net`` (the model, or its DDP
+        wrapper) and its loss against y (class labels or soft targets): the
+        main logits' loss plus, for a model with auxiliary heads, each
+        head's ``weight · criterion(logits, y)``. Returns (loss, main
+        logits)."""
+        net = net or self.model
         if not self._takes_aux:
-            logits = self.model(x)
+            logits = net(x)
             return self.criterion(logits, y), logits
         heads = []
-        logits = self.model(x, aux=heads)
+        logits = net(x, aux=heads)
         loss = self.criterion(logits, y)
         for weight, aux_logits in heads:
             loss = loss + weight * self.criterion(aux_logits, y)
         return loss, logits
 
     def train_step(self, x, y):
-        """One step on the batch (x (B, H, W, C), y (B,) class labels) at the
-        regime's current setting. Returns device scalars ``loss`` (the mean
-        over the chunks), ``correct1``, ``correct5`` (summed over the
-        chunks) and ``grad_norm``, and the step's ``lr`` (a float)."""
+        """One step on the batch (x (B, H, W, C), y (B,) class labels; on a
+        mesh this rank's part) at the regime's current setting. Returns
+        device scalars ``loss`` (the mean over the chunks, and the ranks),
+        ``correct1``, ``correct5`` (summed over the chunks, and the ranks)
+        and ``grad_norm``, and the step's ``lr`` (a float)."""
         hp = self.hyperparams()
         name = self.optim.optimizer_name
         missing = [s for s in optimizer_slots(name) if s not in self.opt_state]
@@ -225,7 +364,8 @@ class Trainer:
         x, y = self._to_device(x, y)
         if self.mix is not None:
             x, y = self.mix(x, y)
-        self.model.train()
+        net = self._ddp or self.model
+        net.train()
         for p in self._params:
             p.grad = None
         chunks = self.cfg.chunk_batch
@@ -234,9 +374,13 @@ class Trainer:
                              f"{chunks} chunks")
         size = x.shape[0] // chunks
         loss = c1 = c5 = 0.0
-        for xi, yi in zip(torch.split(x, size), torch.split(y, size)):
-            chunk_loss, logits = self._loss(xi, yi)
-            (chunk_loss * hp["loss_scale"]).backward()
+        for k, (xi, yi) in enumerate(zip(torch.split(x, size),
+                                         torch.split(y, size))):
+            # DDP all-reduces in the last chunk's backward only
+            with (self._ddp.no_sync() if self._ddp is not None
+                  and k < chunks - 1 else nullcontext()):
+                chunk_loss, logits = self._loss(xi, yi, net)
+                (chunk_loss * hp["loss_scale"]).backward()
             cc1, cc5 = correct_topk(logits.detach(), yi, (1, 5))
             loss, c1, c5 = loss + chunk_loss.detach(), c1 + cc1, c5 + cc5
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
@@ -245,6 +389,13 @@ class Trainer:
             torch._foreach_div_(grads, chunks)
             loss = loss / chunks
         torch._foreach_div_(grads, hp["loss_scale"])
+        if self.mesh is not None:
+            loss, c1, c5 = self._reduce_metrics_and_stats(loss, c1, c5)
+        if self._zero is not None:
+            grad_norm = self._zero_step(grads, hp, name)
+            self.training_steps += 1
+            return {"loss": loss, "correct1": c1, "correct5": c5,
+                    "grad_norm": grad_norm, "lr": hp["lr"]}
         if self._adapts_grad_norm:
             self._adapt_grad_norm(grads, x, y, hp["loss_scale"])
         grad_norm = clip_by_global_norm(grads, hp["grad_clip"])
@@ -262,6 +413,61 @@ class Trainer:
         self.training_steps += 1
         return {"loss": loss, "correct1": c1, "correct5": c5,
                 "grad_norm": grad_norm, "lr": hp["lr"]}
+
+    @torch.no_grad()
+    def _reduce_metrics_and_stats(self, loss, c1, c5):
+        """One all-reduce over the mesh: the BN running statistics and the
+        loss averaged, the correct counts summed (the JAX step's ``pmean``
+        of its state and loss, ``psum`` of the counts)."""
+        buffers = [b for m in self.model.modules()
+                   if isinstance(m, BatchNorm2d)
+                   for b in (m.running_mean, m.running_var)]
+        flat = torch.cat([b.reshape(-1) for b in buffers]
+                         + [torch.stack([loss.float(), c1, c5])])
+        dist.all_reduce(flat, group=self.group)
+        head = flat[:-3]
+        head /= self.world
+        offset = 0
+        for b in buffers:
+            b.copy_(head[offset:offset + b.numel()].view_as(b))
+            offset += b.numel()
+        return flat[-3] / self.world, flat[-2], flat[-1]
+
+    @torch.no_grad()
+    def _zero_step(self, grads, hp, name):
+        """ZeRO-1 (the JAX step's ``shard_opt_state`` branch): the mean
+        gradient's slice by one reduce-scatter, its global norm, the clip,
+        the optimizer on this rank's slice, the parameters all-gathered.
+        Returns the gradient's norm."""
+        z = self._zero
+        g_slice = zero.reduce_scatter_mean(grads, z["padded"], self.group)
+        sq = g_slice.square().sum()
+        dist.all_reduce(sq, group=self.group)
+        grad_norm = torch.sqrt(sq)
+        clip = hp["grad_clip"]
+        if clip > 0:
+            g_slice.mul_(torch.where(grad_norm > clip,
+                                     clip / torch.clamp_min(grad_norm, 1e-12),
+                                     1.0))
+        p_slice = zero.shard_slice(zero.flatten(self._params, z["padded"]),
+                                   self.group)
+        if name in ("LARS", "LAMB"):
+            w_sq = torch.stack([p.float().square().sum()
+                                for p in self._params])
+            kw = dict(mask01=z["mask01"], seg_slice=z["seg"], w_sq=w_sq,
+                      n_leaves=len(self._params), group=self.group)
+            if name == "LARS":
+                zero.lars_step_sharded(p_slice, g_slice, self.opt_state, hp,
+                                       **kw)
+            else:
+                zero.lamb_step_sharded(p_slice, g_slice, self.opt_state, hp,
+                                       leaf_mask=z["leaf_mask"], **kw)
+        else:
+            zero.elementwise_step_sharded(
+                optimizer_step(name), p_slice, g_slice, self.opt_state, hp,
+                segments=z["segments"], mask=self._mask)
+        zero.gather_params(p_slice, self._params, self.group)
+        return grad_norm
 
     def _adapt_grad_norm(self, grads, x, y, loss_scale):
         """Batch augmentation's gradient rescaling: every
@@ -285,6 +491,11 @@ class Trainer:
             sub = [g if g is not None else torch.zeros_like(p)
                    for g, p in zip(sub, self._params)]
             torch._foreach_div_(sub, loss_scale)
+            if self.mesh is not None:
+                # the model's forward, not DDP's: averaged here, as the
+                # main gradient is, so every rank measures the same norm
+                with torch.no_grad():
+                    all_mean_(sub, self.group)
             self.opt_state["agn_scale"] = (
                 global_norm(sub) / torch.clamp_min(full, 1e-12))
         torch._foreach_mul_(grads, self.opt_state["agn_scale"])
@@ -310,7 +521,8 @@ class Trainer:
         trainer holds its state itself.)
 
         ``data_time`` is the host time from the end of one step to the start
-        of the next: the loader's."""
+        of the next: the loader's. On a mesh each rank passes its own
+        batches; the counts and images per second are the whole mesh's."""
         self.epoch = epoch
         meters = {k: AverageMeter() for k in ("loss", "grad_norm",
                                               "step_time", "data_time")}
@@ -349,11 +561,11 @@ class Trainer:
                 log.info("optimizer switched to %s",
                          self.optim.optimizer_name)
             metrics = self.train_step(x, y)
-            samples += len(x)
+            samples += len(x) * self.world
             if step_hook is not None:
                 step_hook(self, i + 1)
             t_step = time.perf_counter()
-            pending.append((metrics, len(x), t_step - t_data,
+            pending.append((metrics, len(x) * self.world, t_step - t_data,
                             t_data - t_last, self.training_steps))
             while len(pending) > 2:
                 drain()
@@ -387,7 +599,12 @@ class Trainer:
         generator and of the mixup or cutmix sampler (the counterpart of the
         JAX checkpoint's ``rng``). ``meta`` adds entries (``model``,
         ``config``, ``batch_idx``, ``best_prec1``, ...) or overrides
-        ``epoch``."""
+        ``epoch``.
+
+        On a mesh every rank must call it (rank 0 writes what it returns):
+        under ZeRO-1 each slot is gathered into the full padded flat vector
+        the JAX package stores (its ``ravel_pytree`` order), and above one
+        rank ``rank_streams`` holds every rank's streams."""
         params, state = to_jax_params(self.model.state_dict())
         opt = {}
         for slot, v in self.opt_state.items():
@@ -395,17 +612,47 @@ class Trainer:
                 opt[slot] = np.int32(v)
             elif isinstance(v, list):
                 opt[slot] = slots_to_tree(self.model, v)
+            elif self._zero is not None and slot_is_flat(v):
+                opt[slot] = self._zero_to_jax_flat(v)
             else:
                 opt[slot] = v.detach().float().cpu().numpy()
+        streams = self._streams()
+        extra = {}
+        if self.world > 1:
+            extra["rank_streams"] = [None] * self.world
+            dist.all_gather_object(extra["rank_streams"], streams,
+                                   group=self.group)
+        return {"epoch": self.epoch, "training_steps": self.training_steps,
+                "regime": self.optim.state_dict(), "streams": streams,
+                **extra, **meta, "params": params, "state": state,
+                "opt_state": opt}
+
+    def _streams(self):
         gen = self.dropout_generator.get_state()
         streams = {"dropout": {"device": self.device.type,
                                "state": base64.b64encode(
                                    gen.numpy().tobytes()).decode()}}
         if self.mix is not None:
             streams["mix"] = self.mix.rng.bit_generator.state
-        return {"epoch": self.epoch, "training_steps": self.training_steps,
-                "regime": self.optim.state_dict(), "streams": streams,
-                **meta, "params": params, "state": state, "opt_state": opt}
+        return streams
+
+    def _zero_to_jax_flat(self, v):
+        """A ZeRO slot's slice → the full padded flat vector in the JAX
+        package's order (a host array)."""
+        z = self._zero
+        full = zero.gather_flat(v.float(), self.group)[:z["size"]]
+        out = np.zeros(z["padded"], np.float32)
+        out[:z["size"]] = full.cpu().numpy()[z["jax_index"]]
+        return out
+
+    def _zero_from_jax_flat(self, flat):
+        """The inverse of :meth:`_zero_to_jax_flat`: this rank's slice."""
+        z = self._zero
+        port = np.zeros(z["padded"], np.float32)
+        port[z["jax_index"]] = np.asarray(flat, np.float32)[:z["size"]]
+        per = z["padded"] // self.world
+        return torch.from_numpy(
+            port[self.rank * per:(self.rank + 1) * per]).to(self.device)
 
     def load_checkpoint(self, ckpt):
         """Restores a checkpoint (``utils.checkpoint.load_checkpoint``'s
@@ -416,20 +663,33 @@ class Trainer:
         checkpoint, the regime's position and the generators' states. A JAX
         checkpoint's ``rng`` key cannot drive the port's streams: after one,
         dropout and mixup draw from this trainer's own seed, so an exact
-        replay of the uninterrupted run holds from port to port only."""
+        replay of the uninterrupted run holds from port to port only.
+
+        Every rank reads the same checkpoint. Under ZeRO-1 each rank takes
+        its slice of the stored flat vectors (or of the trees a checkpoint
+        without ZeRO holds), whatever the world size that wrote them; rank r
+        takes ``rank_streams[r]`` where the checkpoint holds as many, and
+        otherwise keeps its own seed's streams above rank 0."""
         if self.opt_state is None:
             self.initialize()
         # a model without BatchNorm (the MNIST net) saves no state
         self.model.load_state_dict(from_jax_params(ckpt["params"],
                                                    ckpt.get("state")))
         if ckpt.get("opt_state") is not None:
+            flat = np.zeros(self._zero["padded"] if self._zero else 0,
+                            np.float32)
             template = {k: (slots_to_tree(self.model, v)
-                            if isinstance(v, list) else v)
+                            if isinstance(v, list) else
+                            flat if self._zero is not None and slot_is_flat(v)
+                            else v)
                         for k, v in self.opt_state.items()}
             fitted = adapt_opt_state(ckpt["opt_state"], template)
             for slot, v in fitted.items():
                 if isinstance(v, dict):
                     self.opt_state[slot] = tree_to_slots(self.model, v)
+                elif self._zero is not None and slot_is_flat(
+                        self.opt_state.get(slot)):
+                    self.opt_state[slot] = self._zero_from_jax_flat(v)
                 elif slot == "step":
                     self.opt_state[slot] = int(np.asarray(v))
                 else:
@@ -440,6 +700,14 @@ class Trainer:
         if ckpt.get("regime"):
             self.optim.load_state_dict(ckpt["regime"])
         streams = ckpt.get("streams") or {}
+        ranks = ckpt.get("rank_streams")
+        if ranks and len(ranks) == self.world:
+            streams = ranks[self.rank] or {}
+        elif self.rank > 0:
+            if streams:
+                log.warning("the checkpoint holds no streams of rank %d: it "
+                            "keeps its own seed's", self.rank)
+            streams = {}
         dropout = streams.get("dropout")
         if dropout and dropout["device"] == self.device.type:
             self.dropout_generator.set_state(torch.frombuffer(
@@ -459,7 +727,15 @@ class Trainer:
         padded with such rows to a multiple of ``duplicates``. With
         ``average_output`` the float32 logits of each group of
         ``duplicates`` rows are averaged and scored against the group's
-        first label."""
+        first label. On a mesh each rank scores its own batches (every rank
+        the same number of them) and each batch's loss sum, correct counts
+        and count are summed over the ranks (one all-reduce): the result is
+        that of one device seeing every rank's rows. A rank's batch needs no
+        padding to the data degree, which the JAX package pads to shard it:
+        the rows are the ranks' already. The evaluation loaders
+        (``data/loader.py``) give every rank the same number of rows, those
+        past its share labelled -100, so that no sample of the set is left
+        out when the world does not divide it."""
         criterion = CrossEntropyLoss(reduction="sum")
         d = max(self.cfg.duplicates, 1)
         loss_m = AverageMeter()
@@ -487,7 +763,12 @@ class Trainer:
                     y = y.reshape(-1, d)[:, 0]
                 c1, c5 = correct_topk(logits, y, (1, 5))
                 count = (y >= 0).float().sum()
-                loss = criterion(logits, y) / torch.clamp_min(count, 1.0)
+                loss = criterion(logits, y)
+                if self.mesh is not None:
+                    sums = torch.stack([loss.float(), c1, c5, count])
+                    dist.all_reduce(sums, group=self.group)
+                    loss, c1, c5, count = sums.unbind()
+                loss = loss / torch.clamp_min(count, 1.0)
                 pending.append({"loss": loss, "correct1": c1,
                                 "correct5": c5, "count": count})
                 while len(pending) > 2:
@@ -513,8 +794,22 @@ class Trainer:
         auxiliary head's, which does not run) keeps its statistics exactly;
         a fused block's, updated through ``BatchNorm2d.track`` without
         calling the module, counts as run. Returns the number of batches
-        used."""
+        used.
+
+        On a mesh the moments are always cross-replica, whatever
+        ``sync_bn`` says (the JAX package's ``calibrate_bn``): each rank
+        passes its own batches and the result is that of one device seeing
+        them all."""
         bns = [m for m in self.model.modules() if isinstance(m, BatchNorm2d)]
+        groups = (set_bn_group(self.model, self.group)
+                  if self.mesh is not None else None)
+        try:
+            return self._calibrate_bn(bns, loader, num_steps)
+        finally:
+            if groups is not None:
+                restore_bn_groups(self.model, groups)
+
+    def _calibrate_bn(self, bns, loader, num_steps):
         old = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
         ran = [torch.zeros((), dtype=torch.bool, device=mean0.device)
                for mean0, _ in old]

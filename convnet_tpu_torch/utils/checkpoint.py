@@ -236,23 +236,48 @@ def _unravel(flat, template):
     return out
 
 
+def _ravel(tree, length):
+    """``tree``'s leaves raveled in :func:`_sorted_leaves` order (the JAX
+    package's ``ravel_pytree``), float32, zero-padded to ``length``."""
+    flat = np.concatenate([np.asarray(
+        leaf.float() if isinstance(leaf, torch.Tensor) else leaf,
+        np.float32).reshape(-1) for _, leaf in _sorted_leaves(tree)])
+    out = np.zeros(length, np.float32)
+    out[:flat.shape[0]] = flat
+    return out
+
+
 def adapt_opt_state(loaded, template):
     """Fits a loaded optimizer state (a tree of the JAX package's layout) to
     ``template``, the current run's: slots the template has and the
     checkpoint lacks (the optimizer changed across the resume: SGD's ``mu``
     resumed into a regime that also needs Adam's ``m`` and ``v``) keep the
     template's fresh values, slots of the checkpoint the template lacks are
-    dropped, each with a warning. A slot the JAX package stored as one flat
-    vector (``--flat-optim`` or ZeRO-1, padded) is cut into the template's
-    per-tensor tree in ``ravel_pytree`` order. Parameter trees are not
-    handled here: a model that does not match fails when its weights
-    load."""
+    dropped, each with a warning. A slot stored as one flat vector (ZeRO-1
+    or the JAX package's ``--flat-optim``, padded to a multiple of the data
+    degree) and the template's layout may differ, as they do when a run
+    resumes at another world size or with ZeRO toggled: flat → tree cuts
+    the vector into the template's per-tensor tree in ``ravel_pytree``
+    order, tree → flat ravels the tree in that order and pads it to the
+    template's length, flat → flat of another length keeps the common
+    prefix and pads with zeros (the pad is zero by construction). Parameter
+    trees are not handled here: a model that does not match fails when its
+    weights load."""
     def fit(cur, old):
         if isinstance(cur, dict) and isinstance(old, dict):
             return {k: fit(v, old[k]) if k in old else v
                     for k, v in cur.items()}
-        if isinstance(cur, dict) and np.ndim(old) == 1:   # flat → tree
+        cur_flat = not isinstance(cur, dict) and np.ndim(cur) == 1
+        old_flat = not isinstance(old, dict) and np.ndim(old) == 1
+        if isinstance(cur, dict) and old_flat:             # flat → tree
             return _unravel(old, cur)
+        if isinstance(old, dict) and cur_flat:             # tree → flat
+            return _ravel(old, int(np.shape(cur)[0]))
+        if old_flat and cur_flat and np.shape(old) != np.shape(cur):
+            out = np.zeros(int(np.shape(cur)[0]), np.float32)
+            m = min(out.shape[0], int(np.shape(old)[0]))
+            out[:m] = np.asarray(old, np.float32)[:m]
+            return out
         return old
 
     out = {}

@@ -51,6 +51,18 @@ def _root_logger():
     root.setLevel(level)
 
 
+@pytest.fixture
+def one_thread(monkeypatch):
+    """One torch thread for the CLI runs of a test and for the processes
+    they start (``OMP_NUM_THREADS``): the suite's parallel workers share the
+    host's cores, and a CLI run on a thread a core stalls beside them."""
+    threads = torch.get_num_threads()
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _run(tmp_path, save, *extra, batch=128):
     res = main(["--dataset", "synthetic", "--model", "resnet",
                 "--model-config", "{'depth': 8}", "-b", str(batch),
@@ -97,7 +109,8 @@ def test_one_epoch_writes_the_artifacts(trained):
     assert set(ckpt["params"]) == {"stem", "layers", "fc"}
 
 
-def test_save_freq_then_resume_is_bit_exact(tmp_path, monkeypatch):
+def test_save_freq_then_resume_is_bit_exact(tmp_path, monkeypatch,
+                                            one_thread):
     """A run preempted right after its batch-3 save, resumed, ends bit-equal
     to the uninterrupted run (mixup's sampler, the loader's epoch seed)."""
     cfg = ("--mixup", "0.2", "--seed", "7")
@@ -215,14 +228,106 @@ def test_import_torch_initialises_the_run(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--num-devices", "2"], ["--sync-bn"], ["--shard-opt-state"],
-    ["--spatial", "2"], ["--allreduce-dtype", "bf16"],
-    ["--dist-init", "localhost:1234"], ["--dist-rank", "1"],
-    ["--dist-world-size", "2"], ["--dtype", "float16"], ["--dtype", "fp16"]])
+    ["--spatial", "2"], ["--dtype", "float16"], ["--dtype", "fp16"]])
 def test_unported_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _run(tmp_path, "x", *flags)
     assert not os.path.exists(tmp_path / "x")
+
+
+def _other_host(tmp_path, save, *flags):
+    """The CLI as the other host of a two-host run, in a process of its own
+    (it imports the port only)."""
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": repo}
+    return subprocess.Popen(
+        [sys.executable, "-m", "convnet_tpu_torch.cli.main", "--dataset",
+         "synthetic", "--model", "resnet", "--model-config", "{'depth': 8}",
+         "-b", "128", "--epochs", "1", "--print-freq", "0", "--device", "cpu",
+         "--results-dir", str(tmp_path), "--save", save, *flags],
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--num-devices", "2"], ["--sync-bn"], ["--shard-opt-state"],
+    ["--allreduce-dtype", "bf16"], ["--dist-init"], ["--dist-rank", "1"],
+    ["--dist-world-size", "2"]])
+def test_parallel_flags_are_accepted(tmp_path, flags, one_thread):
+    """``--num-devices 2`` trains over gloo in two spawned CPU ranks;
+    ``--sync-bn``, ``--shard-opt-state`` and ``--allreduce-dtype`` at one
+    rank run as in the JAX CLI (no mesh); ``--dist-init`` joins a group of
+    one host; ``--dist-rank 1`` and ``--dist-world-size 2`` each run a
+    two-host job with the other host in a process of its own."""
+    init = ["--dist-init", f"file://{tmp_path / 'rendezvous'}"]
+    other = None
+    if flags[0] == "--dist-init":
+        flags = init
+    elif flags[0] in ("--dist-rank", "--dist-world-size"):
+        mine = 1 if flags[0] == "--dist-rank" else 0
+        two = [*init, "--dist-world-size", "2"]
+        other = _other_host(tmp_path, "x", *two, "--dist-rank",
+                            str(1 - mine))
+        flags = [*two, "--dist-rank", str(mine)]
+    try:
+        res = _run(tmp_path, "x", *flags)
+    finally:
+        if other is not None:
+            log_other = other.communicate(timeout=300)[0]
+    if other is not None:
+        assert other.returncode == 0, log_other
+    assert np.isfinite(res["best_prec1"])
+    assert (tmp_path / "x" / "checkpoint.npz").exists()
+    ranks = ("2 rank(s) over gloo" if "--num-devices" in flags
+             or "--dist-world-size" in flags else "1 rank(s)")
+    assert ranks in (tmp_path / "x" / "log.txt").read_text()
+
+
+def test_two_hosts_of_two_ranks_each_return(tmp_path, one_thread):
+    """``--dist-world-size 2 --num-devices 2``: two hosts of two CPU ranks
+    each, host 0 here and host 1 in a process of its own. Both launchers
+    return with the results (host 1's from its own local rank 0) and host 0
+    alone writes."""
+    flags = ["--dist-init", f"file://{tmp_path / 'rendezvous'}",
+             "--dist-world-size", "2", "--num-devices", "2"]
+    other = _other_host(tmp_path, "x", *flags, "--dist-rank", "1")
+    try:
+        res = _run(tmp_path, "x", *flags, "--dist-rank", "0")
+        log_other = other.communicate(timeout=300)[0]
+    finally:
+        if other.poll() is None:
+            other.kill()
+            other.communicate()
+    assert other.returncode == 0, log_other
+    assert np.isfinite(res["best_prec1"])
+    assert (tmp_path / "x" / "checkpoint.npz").exists()
+    assert "4 rank(s) over gloo" in (tmp_path / "x" / "log.txt").read_text()
+
+
+def test_two_ranks_train_an_epoch_and_rank_0_writes(tmp_path, one_thread):
+    """``--num-devices 2 --device cpu``: ResNet-20 on synthetic CIFAR-10,
+    one epoch over gloo; rank 0 alone logs, writes ``results`` and the
+    checkpoint (its steps count the whole batch of 64, 32 a rank)."""
+    res = main(["--dataset", "synthetic_cifar10", "--model", "resnet",
+                "--model-config", "{'depth': 20}", "-b", "64", "--epochs",
+                "1", "--print-freq", "0", "--device", "cpu",
+                "--num-devices", "2", "--results-dir", str(tmp_path),
+                "--save", "dp"])
+    ckpt_io.wait_for_pending_save()
+    d = tmp_path / "dp"
+    for name in ARTIFACTS:
+        assert (d / name).exists(), name
+    rows = json.loads((d / "results.json").read_text())
+    assert len(rows) == 1 and np.isfinite(rows[0]["train_loss"])
+    assert res["best_prec1"] == rows[0]["val_prec1"]
+    log_text = (d / "log.txt").read_text()
+    assert log_text.count("epoch 0:") == 1
+    assert "2 rank(s) over gloo" in log_text
+    ckpt = ckpt_io.load_checkpoint(str(d))
+    assert ckpt["training_steps"] == 1024 // 64
+    assert len(ckpt["rank_streams"]) == 2
 
 
 def test_the_card_is_the_default(tmp_path):
